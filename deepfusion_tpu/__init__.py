@@ -1,14 +1,14 @@
-"""deepfusion_tpu — TPU-native fused INT8 inference primitives.
+"""deepfusion_tpu — fused INT8 inference primitives for the GPU.
 
 A ground-up JAX/XLA/Pallas re-design with the capabilities of the reference
 ``deep-fusion`` library (x86 AVX512/VNNI JIT kernels): fused concat+ReLU and
 conv3x3+ReLU+conv1x1+ReLU INT8 inference ops with exact requantization
 semantics, plus the roadmap ops (conv+relu+pooling, eltwise-sum+relu),
-a differential-oracle test suite, multi-chip sharding, and a native C++
+a differential-oracle test suite, multi-device sharding, and a native C++
 host runtime.
 
 Two API layers:
-  * functional (TPU-idiomatic): ``deepfusion_tpu.ops.concat/conv/...``
+  * functional: ``deepfusion_tpu.ops.concat/conv/...``
     — pure functions over jax arrays, jit-friendly.
   * object (reference-parity): ``deepfusion_tpu.memory`` + factory
     ``concat()/conv()`` returning ops with ``submit()``

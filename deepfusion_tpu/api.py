@@ -5,7 +5,7 @@ Direct parity with the reference's public surface
 object; ``op.submit()`` runs inference, reading inputs from and writing the
 result into ``memory`` containers, with optional wall-clock profiling
 (``src/deepfusion.cc:90-103``). The functional API in ``deepfusion_tpu.ops``
-is the TPU-idiomatic path; this layer exists so reference users find the
+is the jax-idiomatic path; this layer exists so reference users find the
 same call shapes.
 """
 from __future__ import annotations
@@ -51,7 +51,7 @@ class _concat_op(op):
     def infer(self):
         # result stays on device (memory.data holds a jax.Array): chained
         # object-API ops feed each other with zero host round-trips; call
-        # memory.numpy() for an explicit host copy (VERDICT r1 weak #8)
+        # memory.numpy() for an explicit host copy
         self._dst.data = self._fn([s.data for s in self._srcs], self._relu)
 
 

@@ -6,10 +6,13 @@ computed/validated by ``init_conf`` (``src/jit_concat_kernel.cc:130-197``,
 returns ``false``/exits on an illegal config; here validation raises
 ``CheckError`` before any compilation (same fail-fast contract).
 
-TPU re-design notes: the reference's blocking parameters (``ic_block=16``,
-``ur_w``, ``nb_oc_blocking``) are x86 register-budget decisions; the TPU
-equivalents are lane padding (channels → multiples of the 128-lane vector
-width where profitable) and the Pallas grid row-tile, chosen here.
+The reference's blocking parameters (``ic_block=16``, ``ur_w``,
+``nb_oc_blocking``) are x86 register-budget decisions. Here the only
+lowering choice a config carries is channel padding: input and output
+channels round up to multiples of ``CHANNEL_ALIGN`` (int8 tensor-core
+products take K in steps of 32; the conv kernel tiles channels in
+power-of-two blocks that divide the padded count). Tile sizes live with the
+kernel (``ops/conv.py``).
 """
 from __future__ import annotations
 
@@ -22,15 +25,11 @@ from .types import dtype, round_mode
 from .utils.logger import CheckError, check, check_eq
 from .utils.mathutil import conv_output_size, div_up, one_of, pool_output_size
 
-# TPU hardware constants (v5e-class): MXU is 128x128, vector lanes = 128,
-# int8 sublane packing = 32. Analogue of the reference's
-# `mayiuse(avx512_core_vnni)` capability probe (src/jit_generator.h:45-117).
-LANES = 128
-INT8_SUBLANES = 32
+CHANNEL_ALIGN = 32
 
 
 def device_capabilities():
-    """Probe the runtime device, analogue of `mayiuse` CPUID checks."""
+    """Describe the runtime device, analogue of `mayiuse` CPUID checks."""
     import jax
 
     dev = jax.devices()[0]
@@ -38,8 +37,6 @@ def device_capabilities():
         "platform": dev.platform,
         "device_kind": getattr(dev, "device_kind", "unknown"),
         "num_devices": len(jax.devices()),
-        "lanes": LANES,
-        "int8_native": dev.platform == "tpu",
     }
 
 
@@ -75,7 +72,7 @@ class ConcatConfig:
             ics.append(s[3])
         # reference channel-block legality (src/jit_concat_kernel.cc:155-196):
         # 1-byte dtypes need {64,32,16}-divisible channels, 4-byte need
-        # {16,8,4}. We keep the *check* for API parity; on TPU any block works
+        # {16,8,4}. We keep the *check* for API parity; any block works here
         # but accepting illegal-in-reference shapes would diverge the API.
         blocks = (64, 32, 16) if dt.size == 1 else (16, 8, 4)
         block = 0
@@ -143,16 +140,10 @@ class ConvConfig:
     with_sum: bool = False
     sum_scale: float = 1.0
     sum_dt: Optional[dtype] = None
-    # --- TPU lowering parameters (x86 analogue: ur_w / nb_*_blocking) ---
-    icp: int = 0      # ic padded for packing
-    ocp: int = 0      # oc padded (lane multiple)
+    # --- channel padding (multiples of CHANNEL_ALIGN) ---
+    icp: int = 0
+    ocp: int = 0
     oc1x1p: int = 0
-    row_tile: int = 0  # output rows per Pallas program
-    # input-channel chunks accumulated in VMEM scratch across grid steps —
-    # the reference's nb_ic_blocking / multi-call acc_s32 accumulation
-    # (src/jit_conv_kernel.cc:643-646, src/op_conv.cc:96-122). 1 = whole K
-    # in one shot; >1 bounds the per-step src/weight working set.
-    ic_chunks: int = 1
 
     @property
     def conv0_with_bias(self) -> bool:
@@ -178,7 +169,7 @@ class ConvConfig:
              wei1x1_shape=None, bia1x1_dt=None,
              conv1_relu=False, conv1_scales=(1.0,),
              conv1_round=round_mode.nearest,
-             groups=1, row_tile=None,
+             groups=1,
              sum_dt=None, sum_scale=1.0) -> "ConvConfig":
         """Validate and build; shapes are NHWC (src/dst) and OIHW (weights)."""
         src_dt = dtype.from_any(src_dt)
@@ -226,15 +217,8 @@ class ConvConfig:
             conv0_scales = _as_scale_tuple(conv0_scales, oc, "conv0")
             conv1_scales = _as_scale_tuple(conv1_scales, oc1x1, "conv1")
 
-        # --- TPU lowering choices ---
-        icp = max(div_up(ic, INT8_SUBLANES) * INT8_SUBLANES, INT8_SUBLANES)
-        ocp = max(div_up(oc, LANES) * LANES, LANES)
-        oc1x1p = max(div_up(oc1x1, LANES) * LANES, LANES) if fuse else 0
-        if row_tile is None:
-            row_tile, ic_chunks = _pick_tiling(oh, ow, kh, kw, sh, iw,
-                                               icp, ocp, oc1x1p)
-        else:
-            ic_chunks = 1
+        icp, ocp = pad_channels(ic), pad_channels(oc)
+        oc1x1p = pad_channels(oc1x1) if fuse else 0
 
         return ConvConfig(
             bs=n, gp=groups, ic=ic, ih=ih, iw=iw, oc=oc, oh=oh, ow=ow,
@@ -248,126 +232,11 @@ class ConvConfig:
             with_sum=sum_dt is not None,
             sum_scale=float(sum_scale),
             sum_dt=dtype.from_any(sum_dt) if sum_dt is not None else None,
-            icp=icp, ocp=ocp, oc1x1p=oc1x1p, row_tile=row_tile,
-            ic_chunks=ic_chunks)
+            icp=icp, ocp=ocp, oc1x1p=oc1x1p)
 
 
-_VMEM_BUDGET_CACHE = None
-
-
-def _default_vmem_budget() -> int:
-    """VMEM budget derived from the detected device (ADVICE round 1).
-
-    v5e-class parts run the fused kernel at full speed with a ~20MB working
-    set and 48MB compiles fine (measured); generations with the conservative
-    ~16MB/core VMEM get a matching budget. Override with DF_VMEM_BUDGET.
-    """
-    global _VMEM_BUDGET_CACHE
-    if _VMEM_BUDGET_CACHE is None:
-        kind = ""
-        try:
-            import jax
-            kind = getattr(jax.devices()[0], "device_kind", "")
-        except Exception:
-            pass
-        generous = ("TPU v5 lite", "TPU v5e", "TPU v5p", "TPU v6")
-        _VMEM_BUDGET_CACHE = (48 if (kind.startswith(generous)
-                                     or kind == "cpu" or not kind
-                                     or "cpu" in kind.lower())
-                              else 16) * 1024 * 1024
-    return _VMEM_BUDGET_CACHE
-
-
-def _pick_row_tile(oh, ow, kh, kw, sh, iw, icp, ocp, oc1x1p,
-                   vmem_budget=None, ic_chunks=1) -> Optional[int]:
-    """Choose output rows per grid step so the working set fits VMEM.
-
-    The analogue of the reference's ur_w / workspace sizing
-    (src/jit_conv_kernel.cc:643-661). The tile must divide oh (packed-path
-    pad tiles are whole tiles); among the divisors that fit the VMEM
-    budget, take the largest whose matmul M dimension (t * padded width)
-    stays <= 2048; tiny tiles pay per-program overheads, oversized tiles
-    waste VMEM that the pipeline needs for double buffering. Returns None
-    when no divisor fits (the caller then chunks ic, see _pick_tiling).
-    """
-    import os
-
-    from .utils.mathutil import round_up
-
-    if vmem_budget is None:
-        vmem_budget = int(os.environ.get("DF_VMEM_BUDGET", 0)) \
-            or _default_vmem_budget()
-
-    icp_c = icp // ic_chunks          # lanes loaded per grid step
-    k_dim = kh * kw * icp_c
-    iwp = round_up(iw + 2, 8)  # padded-width estimate for the flat layouts
-
-    def vmem_est(t):
-        m = t * iwp
-        src_bytes = 2 * (oh * sh + 2 * t + kh) * iwp * icp_c  # dbl-buffered
-        patch_bytes = m * k_dim
-        acc_bytes = 2 * m * ocp * 4
-        acc1_bytes = (2 * m * oc1x1p * 4 + m * ocp) if oc1x1p else 0
-        wei_bytes = k_dim * ocp + ocp * (oc1x1p or 0)
-        out_bytes = 2 * m * (oc1x1p or ocp)
-        scratch_bytes = m * ocp * 4 if ic_chunks > 1 else 0
-        return (src_bytes + patch_bytes + acc_bytes + acc1_bytes
-                + wei_bytes + out_bytes + scratch_bytes)
-
-    divisors = [t for t in range(1, oh + 1) if oh % t == 0]
-    feasible = [t for t in divisors if vmem_est(t) <= vmem_budget]
-    if not feasible:
-        return None
-    # big tiles amortize per-program overheads (measured: M=1792 beats
-    # M=768 by ~5pp of roofline); cap at M=2048 to leave VMEM headroom
-    best = [t for t in feasible if t * iwp <= 2048]
-    return best[-1] if best else feasible[0]
-
-
-def _pick_tiling(oh, ow, kh, kw, sh, iw, icp, ocp, oc1x1p,
-                 vmem_budget=None) -> Tuple[int, int]:
-    """(row_tile, ic_chunks): split K when even 1-row tiles blow VMEM.
-
-    The reference bounds its working set by iterating input-channel chunks
-    and accumulating s32 partials across kernel calls
-    (src/op_conv.cc:96-122, nb_ic_blocking src/jit_conv_kernel.cc:643-646);
-    the Pallas analogue is an ic grid dimension accumulating into VMEM
-    scratch. Chunk lanes stay 128-multiples so the K panels remain
-    MXU-native."""
-    from .utils.mathutil import round_up
-
-    iwp = round_up(iw + 2, 8)
-    best = None  # (m, row_tile, ic_chunks)
-    c = 1
-    while c == 1 or icp % (c * LANES) == 0:
-        rt = _pick_row_tile(oh, ow, kh, kw, sh, iw, icp, ocp, oc1x1p,
-                            vmem_budget, ic_chunks=c)
-        if rt is not None:
-            m = rt * iwp
-            if m >= 512:
-                # pipeline-filling tile with the fewest chunks: done
-                # (chunking costs scratch traffic, so never chunk further
-                # once the MXU M dimension is filled)
-                return rt, c
-            # below the fill threshold, a chunked tiling must at least
-            # double the tile to pay for its scratch accumulation
-            if best is None or m >= 2 * best[0]:
-                best = (m, rt, c)
-        c *= 2
-    if best is None:
-        return 1, 1  # nothing fits: run anyway, let Mosaic decide
-    return best[1], best[2]
-
-
-def replace_geometry(cfg: ConvConfig, **kw) -> ConvConfig:
-    """dataclasses.replace that re-picks row_tile for the new geometry
-    (row_tile must always divide oh)."""
-    new = dataclasses.replace(cfg, **kw)
-    if new.oh % new.row_tile != 0 or "oh" in kw:
-        rt, chunks = _pick_tiling(new.oh, new.ow, new.kh, new.kw, new.sh,
-                                  new.iw, new.icp, new.ocp, new.oc1x1p)
-        new = dataclasses.replace(new, row_tile=rt, ic_chunks=chunks)
-    return new
+def pad_channels(c: int) -> int:
+    return max(div_up(c, CHANNEL_ALIGN) * CHANNEL_ALIGN, CHANNEL_ALIGN)
 
 
 @dataclasses.dataclass(frozen=True)

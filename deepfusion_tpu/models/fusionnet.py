@@ -156,6 +156,30 @@ class FusionNet:
     def jit(self):
         return jax.jit(self.__call__)
 
+    def reference(self, x_u8) -> np.ndarray:
+        """The same forward composed from the numpy oracles of ops/ref.py
+        (float64 BLAS accumulation, exact): the model-level reference."""
+        from ..config import PoolConfig
+        from ..ops.ref import (concat_relu_ref, conv_ref,
+                               eltwise_sum_relu_ref, pool_ref)
+
+        def run(name, x):
+            p = self.params[name]
+            return conv_ref(p.cfg, x, p.wei, p.bia, p.wei1, p.bia1)
+
+        x = run("stem", np.asarray(x_u8))
+        y = concat_relu_ref([run("block1", x), run("branch", x)], True)
+        y = eltwise_sum_relu_ref(y, run("res", y))
+        h = y.shape[1]
+        y = pool_ref(y, PoolConfig.make("max", (h, h), (2, 2), (2, 2),
+                                        (0, 0)))
+        y = run("block2", y)
+        h = y.shape[1]
+        y = pool_ref(y, PoolConfig.make("avg_exc", (h, h), (h, h), (h, h),
+                                        (0, 0)))
+        logits = run("head", y)
+        return logits.reshape(logits.shape[0], -1)
+
     # ------------------------------------------ packed-domain forward path
 
     def build_packed(self):
@@ -171,8 +195,8 @@ class FusionNet:
         p = self.params
 
         # Halo budget (erosion scheme): each 3x3 conv consumes one halo row
-        # (halo_out = halo_in - ph), so no boundary tile ever reads out of
-        # bounds and the kernels compile with zero roll branches. The 2x2
+        # (halo_out = halo_in - ph), so no output row reads out of
+        # bounds. The 2x2
         # maxpool needs its input halo even; the chain 4 -> 3 -> 2(even)
         # -> pool -> 1 -> 0 satisfies every consumer exactly.
         sin0 = PackedSpec.make(hw, hw, c, cp=p["stem"].cfg.icp,
@@ -181,8 +205,8 @@ class FusionNet:
         block1 = p["block1"].packed(stem.sout, 2, 2)
         branch = p["branch"].packed(stem.sout, 2, 2)
         # concat-free branch merge: the 1x1 residual conv reads both
-        # branches as K-segments, and the fused sum+pool joins them in
-        # VMEM — the 2w-channel concat never exists in HBM
+        # branches as K-segments, and the fused sum+pool joins them — the
+        # 2w-channel concat never exists in memory
         res = p["res"].packed((block1.sout, branch.sout), 2, 2)
         pool_spec = PackedSpec(h=hw // 2, w=hw // 2, c=2 * w, cp=2 * w,
                                halo=1, col_off=1, iwp=sin0.iwp // 2)

@@ -1,7 +1,7 @@
 """ResFusionNet — ResNet-style INT8 model exercising the remaining hot
-paths FusionNet does not touch: the strided-conv Pallas kernel (s2d
-lowering), the conv eltwise-sum post-op (residual fused into the requant
-epilogue), and the single-kernel fused conv+relu+maxpool downsampler.
+paths FusionNet does not touch: the strided conv, the conv eltwise-sum
+post-op (residual fused into the requant epilogue), and the
+conv+relu+maxpool downsampler.
 
 The reference ships no models; its VGG/ResNet layer shapes
 (test/test_conv_relu_pooling.cc:313-391) and roadmap fusions
@@ -17,7 +17,7 @@ import jax
 import numpy as np
 
 from ..config import PoolConfig
-from ..ops.convpool import ConvPoolOp, pool2_fusable
+from ..ops.convpool import ConvPoolOp
 from ..ops.pool import pool
 from .fusionnet import _mkconv
 
@@ -42,7 +42,7 @@ class ResFusionNet:
         rng = np.random.default_rng(cfg.seed)
         n, hw, c, w = cfg.batch, cfg.hw, cfg.in_ch, cfg.width
 
-        # stem: conv3x3 stride 2 (s2d-lowered Pallas kernel), u8 out
+        # stem: conv3x3 stride 2, u8 out
         p_stem, s = _mkconv(rng, n, hw, hw, c, w, 3, 1, 2, "u8",
                             in_std=74.0)
         self.stem = p_stem.dense()
@@ -58,10 +58,9 @@ class ResFusionNet:
                                            sum_dt=p_blk.cfg.dst_dt))
         self.block1 = p_blk.dense()
 
-        # downsample: single-kernel fused conv3x3+relu+maxpool2x2/s2
+        # downsample: conv3x3+relu+maxpool2x2/s2
         p_dn, _ = _mkconv(rng, n, hw1, hw1, w, w, 3, 1, 1, "u8")
         pc = PoolConfig.make("max", (hw1, hw1), (2, 2), (2, 2), (0, 0))
-        assert pool2_fusable(p_dn.cfg, pc)
         self.down = ConvPoolOp(p_dn.cfg, pc, p_dn.wei, p_dn.bia)
 
         # stage 2: fused block (w -> w -> w)
@@ -88,9 +87,9 @@ class ResFusionNet:
         return rng.integers(0, 256, self._in_shape, dtype=np.uint8)
 
     def __call__(self, x_u8):
-        x = self.stem(x_u8)                       # strided Pallas conv
+        x = self.stem(x_u8)                       # strided conv
         y = self.block1(x, sum_src=x)             # residual via sum post-op
-        y = self.down(y)                          # one-kernel conv+pool
+        y = self.down(y)                          # conv+pool
         y = self.block2(y)
         y = pool(y, "avg_exc", (y.shape[1], y.shape[2]),
                  (y.shape[1], y.shape[2]), (0, 0))
@@ -104,7 +103,7 @@ class ResFusionNet:
 
     def build_packed(self):
         """Layout-persistent pipeline: the strided stem runs the packed
-        kernel on the s2d grid (its output is already packed for block1),
+        conv on the s2d grid (its output is already packed for block1),
         the residual joins as a packed sum post-op inside block1's requant
         epilogue, the downsample is a packed conv + packed 2x2 maxpool, and
         the head reduces straight off the packed array — the only dense
@@ -112,10 +111,10 @@ class ResFusionNet:
 
         Halo budget: iwp=48 (the maxpool needs iwp % 16 == 0); the erosion
         chain stem(4) -> block1(3) -> down(2, even for the pool) -> pool(1)
-        -> block2(0) keeps every boundary window in-bounds, so no kernel
-        compiles a boundary roll. block1's sum operand is the stem output
-        at halo 4 while block1 emits halo 3 — the kernel re-bases rows by
-        the static halo difference instead of forcing a repack."""
+        -> block2(0) keeps every boundary window in-bounds. block1's sum
+        operand is the stem output at halo 4 while block1 emits halo 3 —
+        the conv re-bases rows by the static halo difference instead of
+        forcing a repack."""
         if self._packed is not None:
             return self._packed
         from ..ops import layout

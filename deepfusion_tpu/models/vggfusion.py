@@ -1,20 +1,17 @@
-"""VGGFusion — a VGG-style INT8 backbone whose blocks are megakernels.
+"""VGGFusion — a VGG-style INT8 backbone of conv-conv-pool blocks.
 
 The reference's conv+relu+pooling spec pipeline
 (test/test_conv_relu_pooling.cc:313-391) is the VGG downsampling block:
 conv3x3+relu -> conv3x3+relu -> maxpool2x2/s2. This model stacks three
-such blocks and runs each one as a SINGLE Pallas program in the packed
-path — ``PackedConvPairOp(pool2=True)`` computes both convs with the
-layer boundary in VMEM scratch and pools the second conv's output in
-its requant epilogue, so a whole block touches HBM exactly twice (one
-packed read, one pooled packed write). The dense twin runs
+such blocks. The packed path runs each block as a
+``PackedConvPairOp(pool2=True)`` (two packed convs and the pool, with the
+activations in the packed layout throughout); the dense twin runs
 ConvOp + ConvPoolOp per block; the two forwards are bitwise identical
 (tests/test_models.py).
 
 Geometry: every block emits halo_out=2 / col_off_out=2 (even, for pool
-legality); pooling halves them to 1/1, which the next block's pair
-absorbs with its boundary-roll machinery. The input iwp is a multiple
-of 8 * 2^n_blocks so every pooled row stays sublane-aligned.
+legality); pooling halves them to 1/1. The input iwp is a multiple of
+8 * 2^n_blocks so every pooled row keeps iwp a multiple of 8.
 """
 from __future__ import annotations
 
@@ -67,15 +64,13 @@ class VGGFusion:
         p_head, _ = _mkconv(rng, n, 1, 1, chans[-1], cfg.num_classes, 1,
                             0, 1, "f32", relu=False)
         self.head = p_head.dense()
-        # dense twin: ConvOp for conv1, single-kernel ConvPoolOp for
-        # conv2 + pool (ops/convpool.py)
+        # dense twin: ConvOp for conv1, ConvPoolOp for conv2 + pool
         from ..config import PoolConfig
-        from ..ops.convpool import ConvPoolOp, pool2_fusable
+        from ..ops.convpool import ConvPoolOp
         self.dense_blocks = []
         for p1, p2 in self.block_params:
             pc = PoolConfig.make("max", (p2.cfg.oh, p2.cfg.ow), (2, 2),
                                  (2, 2), (0, 0))
-            check(pool2_fusable(p2.cfg, pc), "block not pool-fusable")
             self.dense_blocks.append(
                 (p1.dense(), ConvPoolOp(p2.cfg, pc, p2.wei, p2.bia)))
         self._stem_in_shape = (n, hw, hw, cfg.in_ch)
@@ -104,23 +99,22 @@ class VGGFusion:
     def jit(self):
         return jax.jit(self.__call__)
 
-    # ----------------------------------------------------- packed (mega)
+    # ----------------------------------------------------------- packed
 
     def build_packed(self):
-        """One ``PackedConvPairOp(pool2=True)`` megakernel per block."""
+        """One ``PackedConvPairOp(pool2=True)`` per block."""
         if self._packed is not None:
             return self._packed
         from ..ops.mega import PackedConvPairOp
         from ..ops.packed import PackedSpec
         cfg = self.cfg
-        # iwp divisible by 8 * 2^n_blocks keeps every pooled row aligned
+        # iwp divisible by 8 * 2^n_blocks keeps every pooled iwp % 8 == 0
         iwp0 = round_up(cfg.hw + 4, 8 * 2 ** self.N_BLOCKS)
         spec = PackedSpec.make(cfg.hw, cfg.hw, cfg.in_ch, halo=2,
                                col_off=2, iwp=iwp0)
         pairs = []
         for b, (p1, p2) in enumerate(self.block_params):
-            # last block: halo_out=0 (nothing consumes its halo, and
-            # tiny late-stage images leave no room for boundary rolls)
+            # last block: halo_out=0 (nothing consumes its halo)
             ho = 0 if b == self.N_BLOCKS - 1 else 2
             pair = PackedConvPairOp(
                 p1.cfg, (p1.wei, p1.bia), p2.cfg, (p2.wei, p2.bia),
@@ -131,8 +125,8 @@ class VGGFusion:
         return self._packed
 
     def packed_call(self, x_u8):
-        """Bitwise identical to ``__call__``: 3 megakernel launches +
-        the packed global average pool + the head."""
+        """Bitwise identical to ``__call__``: 3 conv-pair blocks + the
+        packed global average pool + the head."""
         from ..ops.packed import pack_image, packed_global_avgpool
         pairs, final_spec = self.build_packed()
         x = pack_image(x_u8, pairs[0].sin, xp=jnp)
@@ -149,13 +143,11 @@ class VGGFusion:
     # ------------------------------------------------------------ hybrid
 
     def hybrid_call(self, x_u8):
-        """Mixed schedule: the BIG-image block runs as the packed pool2
-        megakernel (where halo columns land on alignment padding anyway
-        and one Pallas program replaces two kernels + a pool), the
-        shrunken late blocks run dense (where packed halo rows/columns
-        are a large M-row tax — docs/PERF.md model-scale section). One
-        unpack at the 28x28 seam is the only glue. Bitwise identical to
-        both pure schedules (tests/test_models.py)."""
+        """Mixed schedule: the big-image block runs packed, the shrunken
+        late blocks run dense (where packed halo rows/columns are a large
+        share of the positions computed). One unpack at the seam is the
+        only glue. Bitwise identical to both pure schedules
+        (tests/test_models.py)."""
         from ..ops.packed import pack_image, unpack_image
         from ..ops.pool import pool
         pairs, _ = self.build_packed()

@@ -1,10 +1,10 @@
 // dfruntime — native host runtime for deepfusion_tpu.
 //
-// TPU-native equivalent of the reference's C++ runtime layer: aligned
-// buffers (util/memory.cc:21-40), weight pre-packing (the OIhw4i16o4i
-// transform consumed by src/jit_conv_kernel.cc:512-564 — here the MXU
-// matmul layout (kh*kw*icp, ocp)), the u8->s8 shift + correction transform
-// feeding the int8 MXU path, and the balance211/nd_iterator work
+// Equivalent of the reference's C++ runtime layer: aligned buffers
+// (util/memory.cc:21-40), weight pre-packing (the OIhw4i16o4i transform
+// consumed by src/jit_conv_kernel.cc:512-564 — here the int8 product
+// layout (kh*kw*icp, ocp)), the u8->s8 shift + correction transform
+// feeding the int8 products, and the balance211/nd_iterator work
 // partitioners (util/deepfusion_utils.h:190-255) used for host-side batch
 // sharding and the staging pipeline.
 //

@@ -1,12 +1,9 @@
-"""Concat(+ReLU) Pallas kernel.
+"""Concat(+ReLU).
 
-TPU-native re-design of the reference's JIT concat
-(``src/jit_concat_kernel.cc:30-128`` + ``src/op_concat.cc:22-72``): the x86
-version parallelises over pixel positions with OpenMP and emits per-block
-vector load/relu/store; here each input is flattened to (rows, channels),
-the grid tiles rows, and every program copies its row-tile of *all* inputs
-into the right channel offsets of the output block — one fused
-read+relu+write pass over HBM, which is the bandwidth roofline for this op.
+Re-design of the reference's JIT concat (``src/jit_concat_kernel.cc:30-128``
++ ``src/op_concat.cc:22-72``). The op is pure bandwidth: XLA fuses the
+channel concat and the ReLU into one loop that reads every input once and
+writes the output once, which is the HBM roofline for this op.
 
 ReLU semantics: true ReLU per dtype. The reference has two out-of-range
 quirks (s32 via 16-bit-lane max, u8 via signed-byte max,
@@ -20,79 +17,20 @@ from typing import Sequence
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..config import ConcatConfig
-from ..utils import env
-
-# image rows per grid program. The op is pure bandwidth; the kernel
-# works on the NHWC arrays DIRECTLY — flattening (bs, h, w, c) to
-# (bs*h*w, c) looks free but h/w are rarely multiples of the (8, 128)
-# tile, so XLA materializes a physical relayout of every input AND the
-# output around the kernel (measured: 207 GB/s flattened vs 658 GB/s
-# for the same bytes through a 4-D copy kernel, scratch/concat_probe.py).
-_H_TILE = 16
 
 
 def _relu(x):
     if x.dtype == jnp.uint8:
         return x  # true ReLU is the identity on unsigned values
-    if x.dtype == jnp.int8:
-        # Mosaic has no 8-bit integer max (arith.maxsi on vector<..xi8>
-        # fails to legalize). Widening through i32 costs three VPU
-        # passes on 4x the data and left the s8 concat at ~200 GB/s
-        # against a measured 1727 GB/s copy bound (round-5 honest-chain
-        # re-bench); instead, SWAR on the bitcast-i32 view: build a
-        # per-byte mask of negative bytes (sign bit >> 7, isolate,
-        # spread with * 0xFF — no cross-byte carries since each byte
-        # holds 0 or 1) and clear them. One shift + and + mul + andnot
-        # per FOUR values, byte-order independent.
-        if env.interpret_kernels() or x.shape[-2] % 4:
-            # bitcast groups along the second-to-minor (sublane) dim
-            return jnp.maximum(x.astype(jnp.int32), 0).astype(jnp.int8)
-        v = pltpu.bitcast(x, jnp.int32)
-        sign = jax.lax.shift_right_logical(v, 7) & jnp.int32(0x01010101)
-        mask = sign * jnp.int32(0xFF)
-        return pltpu.bitcast(v & ~mask, jnp.int8)
     return jnp.maximum(x, jnp.zeros((), dtype=x.dtype))
-
-
-def _concat_kernel(*refs, with_relu):
-    *src_refs, out_ref = refs
-    parts = []
-    for ref in src_refs:
-        x = ref[...]
-        if with_relu:
-            x = _relu(x)
-        parts.append(x)
-    # ONE full-width store: per-source partial-lane stores serialized
-    # the write pipeline (measured ~200 GB/s vs the 1727 GB/s copy
-    # bound; round-5 concat re-bench)
-    out_ref[...] = parts[0] if len(parts) == 1 \
-        else jnp.concatenate(parts, axis=-1)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def _concat_call(cfg: ConcatConfig, *srcs):
-    th = min(_H_TILE, cfg.h)
-    grid = (cfg.bs, pl.cdiv(cfg.h, th))
-    return pl.pallas_call(
-        functools.partial(_concat_kernel, with_relu=cfg.with_relu),
-        out_shape=jax.ShapeDtypeStruct(
-            (cfg.bs, cfg.h, cfg.w, cfg.oc), cfg.dt.np),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, th, cfg.w, ic), lambda b, t: (b, t, 0, 0),
-                         memory_space=pltpu.VMEM)
-            for ic in cfg.ics
-        ],
-        out_specs=pl.BlockSpec((1, th, cfg.w, cfg.oc),
-                               lambda b, t: (b, t, 0, 0),
-                               memory_space=pltpu.VMEM),
-        compiler_params=env.tpu_compiler_params(("parallel", "parallel")),
-        interpret=env.interpret_kernels(),
-    )(*srcs)
+    out = jnp.concatenate(srcs, axis=-1)
+    return _relu(out) if cfg.with_relu else out
 
 
 def concat(srcs: Sequence, post_relu: bool = False):

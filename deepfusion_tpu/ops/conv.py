@@ -1,427 +1,454 @@
-"""Fused INT8 conv3x3(+ReLU)(+conv1x1+ReLU) Pallas kernel — the flagship op.
+"""Fused INT8 conv3x3(+ReLU)(+conv1x1+ReLU) — the flagship op.
 
-TPU-native re-design of the reference's JIT conv
-(``src/jit_conv_kernel.cc`` + ``src/op_conv.cc``). Design mapping:
+Re-design of the reference's JIT conv (``src/jit_conv_kernel.cc`` +
+``src/op_conv.cc``) for a GPU.
 
-* x86 register-resident 3x3->1x1 dataflow (the 3x3 result is requantized to
-  u8 *in zmm registers* and consumed by the 1x1 without touching memory,
-  ``src/jit_conv_kernel.cc:275-277``, ``:143-191``) -> **VMEM residency**:
-  one Pallas program computes the 3x3 s32 tile, requantizes, and feeds the
-  1x1 MXU matmul, all on-chip; only the final dst hits HBM.
-* ``vpdpbusd`` u8*s8 dot -> MXU int8 matmul via ``jnp.dot(..,
-  preferred_element_type=int32)``. The MXU path is s8 x s8, so u8 operands
-  are shifted by -128 with an exact per-channel int32 correction
-  (see ops/layout.py) — bit-identical to the u8 x s8 accumulation.
-* kh/kw/ic loops with ``OIhw4i16o4i`` packing -> **flattened-HW im2col with
-  output-side kw rolls**: the padded image lives in VMEM as a
-  (IHP*IWP8, ICP) matrix (width padded to a multiple of 8 so row offsets
-  are sublane-aligned). The KH row blocks for a row tile are contiguous
-  2-D slices at offsets (r0+ki)*IWP8; lane-concatenating them yields a
-  (rows*IWP8, KH*ICP) patch that hits the MXU as KW matmuls (one per kw
-  tap), and each tap's s32 result is rotated by -kj with ``pltpu.roll``
-  before accumulation (conv identity: y[p] = sum_kj z_kj[p+kj]). This
-  avoids both sublane reshapes and misaligned dynamic slices, which
-  Mosaic cannot lower. Rolled wrap-around rows and out-of-row pixels
-  (columns >= ow) only feed outputs discarded by the caller's slice; the
-  waste factor is IWP8/OW (~5% at ow=360, ~23% at ow=13).
-* runtime kh clipping at image borders (``src/op_conv.cc:102-104``) ->
-  zero-padded input (numerically identical; padding folds into the constant
-  -128 shift correction).
-* per-thread s32 workspaces ``ws_``/``acc1x1`` (``src/op_conv.h:73-79``) ->
-  none needed: each grid program's accumulators are MXU/VMEM values.
+**The flat layout.** Every stride-1 conv runs over a *flat* image: the
+spatially padded input of shape (N, H', IWP, ICP) viewed as
+(N, H' * IWP, ICP), with IWP a multiple of 8 and the u8 values shifted to
+s8 (x - 128). Output flat position p reads, for tap (ki, kj), the input
+flat position ``p + (row_base + ki) * IWP + col_shift + kj``. One
+formulation covers the dense op (``row_base = col_shift = 0``; output
+columns >= OW are wrap-around garbage the caller slices away) and the
+packed domain of ``ops/packed.py`` (halo re-basing and column offsets; the
+epilogue masks every non-image slot to -128).
 
-Strided convs (sh or sw > 1) break the contiguous-slice property *of the
-original image*, so they run the same Pallas kernel over the space-to-depth
-grid: a stride-(sh,sw) conv is exactly a stride-1 conv with (sh*sw*ic)
-channels and remapped weights (``layout.s2d_cfg``/``s2d_weights``), which is
-bit-identical because s2d slots with no original tap get zero weights. The
-reference handles stride in-kernel via its blocking parameters
-(``src/jit_conv_kernel.cc:512-673``); s2d is the MXU-native equivalent — it
-turns strided spatial reads into dense lane reads. ``_conv_xla`` remains
-only as the "what the compiler does unaided" comparison baseline for
-``bench.py --compare-xla``.
+**Arithmetic.** u8 x s8 products are s8 x s8 after the -128 shift, with the
+exact per-channel correction ``128 * colsum(w)`` (``ops/layout.py``); all
+products accumulate in int32. The 3x3 result is requantized to u8 (shifted
+to s8) and fed to the fused 1x1 product without leaving the kernel — the
+reference keeps it in zmm registers (``src/jit_conv_kernel.cc:275-277``).
 
-Grid: (batch, oh/row_tile); the input image block index is constant across
-row tiles so Pallas DMAs it only once per batch element.
+**Implementation.** ``flat_conv`` is one Pallas kernel on the Triton route:
+one program per (image, block of BM flat output positions); the K loop over
+kh*kw taps x ICP/BK channel blocks runs inside the program with the int32
+accumulator in registers, then requant, the 1x1 ``pl.dot`` on the whole
+row, requant and store. Each tap is a plain load at its flat offset. Loads
+past the end of the input are masked; an input whose first tap would read
+before position 0 is front-padded by the wrapper.
+
+Strided dense convs run as plain XLA (``_conv_strided``).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
+from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..config import ConvConfig
 from ..types import dtype, round_mode
 from ..utils import env
+from ..utils.mathutil import round_up
 from ..utils.opcache import OperandCache
 from . import layout
-from .requant import requant, requant_to_u8_centered
+from .requant import requant, requant_to_u8_centered, round_f32
 
 
-def _flat_iwp(cfg: ConvConfig) -> int:
-    from ..utils.mathutil import round_up
-    return round_up(cfg.iw + 2 * cfg.pw, 8)
+@dataclasses.dataclass(frozen=True)
+class FlatPlan:
+    """Output -> input geometry of one flat conv call (module docstring).
+
+    mask: None for a dense output, else ``(row0, halo, h, col_off, w)``:
+    output flat row r is absolute row ``row0 + r`` of a packed image whose
+    slots outside rows [halo, halo+h) x columns [col_off, col_off+w) are
+    forced to -128 (u8 zero)."""
+
+    iwp: int
+    rows_out: int
+    row_base: int = 0
+    col_shift: int = 0
+    mask: Optional[Tuple[int, int, int, int, int]] = None
+
+    @property
+    def m_out(self) -> int:
+        return self.rows_out * self.iwp
 
 
-def _row_patch(src_ref, cfg: ConvConfig, t_idx):
-    """Build the (row_tile*iwp8, kh*icp) patch from the flat image.
-
-    src_ref block: (1, ihp*iwp8, icp). The KH row blocks for output rows
-    [r0, r0+T) are contiguous aligned slices [ (r0+ki)*iwp8, +T*iwp8 );
-    kw shifts are applied to the matmul *results* (see _acc_kw_rolled).
-    Requires sh == sw == 1.
-    """
-    T = cfg.row_tile
-    iwp = _flat_iwp(cfg)
-    r0 = t_idx * T
-    blocks = []
-    for ki in range(cfg.kh):
-        base = pl.multiple_of((r0 + ki) * iwp, 8)
-        blocks.append(src_ref[0, pl.ds(base, T * iwp), :])
-    return jnp.concatenate(blocks, axis=-1)  # (T*iwp8, kh*icp)
+def _pow2_divisor(n: int, cap: int) -> int:
+    d = 1
+    while d * 2 <= cap and n % (d * 2) == 0:
+        d *= 2
+    return d
 
 
-def _acc_kw_rolled(patch, w3_ref, cfg: ConvConfig):
-    """KW taps off one patch: y[p] = sum_kj z_kj[p + kj] (conv identity;
-    z_kj = patch @ tap-kj weights). Wrap-around rows land on discarded
-    out-of-row outputs in both formulations:
-
-    * kw <= 4 (every tap shift < 4): exact INPUT-side byte shifts of the
-      int8 patch on its bitcast-i32 view, lane-concatenated into ONE
-      K = kw*kh*icp matmul — no s32 rolls, no inter-tap VPU adds
-      (scratch/roll_probe.py bshift1; same formulation as the packed
-      kernel).
-    * otherwise: per-tap matmuls + output-side pltpu.roll of the s32
-      partials (pltpu.roll only handles 32-bit data).
-
-    w3_ref may be 2-D (whole K panel) or 3-D with a leading singleton
-    (one ic-chunk's panel selected by the grid).
-    """
-    m = patch.shape[0]
-    ksub = cfg.kh * cfg.icp
-    interp = env.interpret_kernels()
-    w3 = w3_ref[0] if len(w3_ref.shape) == 3 else w3_ref[...]
-    if cfg.kw <= 4:
-        from .packed import _shifted_patch
-        taps = [_shifted_patch(patch, kj, interp) for kj in range(cfg.kw)]
-        wide = taps[0] if cfg.kw == 1 else jnp.concatenate(taps, axis=-1)
-        return jnp.dot(wide, w3, preferred_element_type=jnp.int32)
-    acc = None
-    for kj in range(cfg.kw):
-        part = jnp.dot(patch, w3[kj * ksub:(kj + 1) * ksub, :],
-                       preferred_element_type=jnp.int32)
-        if kj:
-            part = (jnp.roll(part, -kj, 0) if interp
-                    else pltpu.roll(part, m - kj, 0))
-        acc = part if acc is None else acc + part
-    return acc
+def _rne(x):
+    """Round-half-even of f32 from exact steps (floor, subtract, compare):
+    the Triton route has no round primitive, and the 2^23 add-subtract
+    trick can be folded away by an algebraic simplifier."""
+    r = jnp.floor(x)
+    f = x - r
+    half = r * 0.5
+    up = (f > 0.5) | ((f == 0.5) & (half != jnp.floor(half)))
+    return jnp.where(up, r + 1.0, r)
 
 
-def _sum_term(sum_ref, cfg: ConvConfig):
-    """f32 eltwise-sum operand (8-bit types widen through i32: Mosaic has
-    no direct 8-bit <-> f32 casts)."""
-    x = sum_ref[0]
-    if cfg.sum_dt in (dtype.u8, dtype.s8):
-        x = x.astype(jnp.int32)
-    x = x.astype(jnp.float32)
-    return x * np.float32(cfg.sum_scale)
+def _kround(x, mode):
+    return _rne(x) if mode == round_mode.nearest else jnp.floor(x)
 
 
-def _acc_or_chunk(src_ref, w3_ref, cfg, ccfg, scratch_ref, epilogue):
-    """Shared 3x3-accumulation driver for the conv kernels.
+# ------------------------------------------------------------ epilogue
 
-    Single-shot (ccfg is None): compute the full s32 acc and run the
-    epilogue. Chunked (the reference's multi-call acc_s32 accumulation,
-    src/op_conv.cc:96-122): each ic-chunk grid step accumulates its
-    partial into VMEM scratch; the last chunk runs the epilogue.
-    """
-    pcfg = ccfg if ccfg is not None else cfg
-    patch = _row_patch(src_ref, pcfg, pl.program_id(1))
-    part = _acc_kw_rolled(patch, w3_ref, pcfg)
-    if ccfg is None:
-        epilogue(part)
-        return
-    c = pl.program_id(2)
-
-    @pl.when(c == 0)
-    def _init():
-        scratch_ref[...] = part
-
-    @pl.when(c != 0)
-    def _accum():
-        scratch_ref[...] = scratch_ref[...] + part
-
-    @pl.when(c == pl.num_programs(2) - 1)
-    def _finish():
-        epilogue(scratch_ref[...])
-
-
-def _conv_kernel(*refs, cfg: ConvConfig, ccfg: ConvConfig = None):
-    scratch_ref = None
-    if ccfg is not None:
-        *refs, scratch_ref = refs
-    if cfg.with_sum:
-        (src_ref, w3_ref, corr0_ref, bias0_ref, scale0_ref, sum_ref,
-         out_ref) = refs
-    else:
-        src_ref, w3_ref, corr0_ref, bias0_ref, scale0_ref, out_ref = refs
-        sum_ref = None
-
-    def epilogue(acc):
-        acc = acc + corr0_ref[...]                 # exact u8-shift correction
-        res = requant(acc,
-                      bias0_ref[...] if cfg.conv0_with_bias else None,
-                      scale0_ref[...], cfg.conv0_relu, cfg.conv0_round,
-                      cfg.dst_dt,
-                      sum_term=None if sum_ref is None
-                      else _sum_term(sum_ref, cfg))
-        out_ref[0] = res[:, :cfg.oc]
-
-    _acc_or_chunk(src_ref, w3_ref, cfg, ccfg, scratch_ref, epilogue)
-
-
-def _conv_fused_kernel(*refs, cfg: ConvConfig, emit_acc1: bool = False,
-                       ccfg: ConvConfig = None):
-    scratch_ref = None
-    if ccfg is not None:
-        *refs, scratch_ref = refs
-    if emit_acc1:
-        (src_ref, w3_ref, corr0_ref, bias0_ref, scale0_ref,
-         w1_ref, corr1_ref, out_ref) = refs
-        sum_ref = bias1_ref = scale1_ref = None
-    elif cfg.with_sum:
-        (src_ref, w3_ref, corr0_ref, bias0_ref, scale0_ref,
-         w1_ref, corr1_ref, bias1_ref, scale1_ref, sum_ref, out_ref) = refs
-    else:
-        (src_ref, w3_ref, corr0_ref, bias0_ref, scale0_ref,
-         w1_ref, corr1_ref, bias1_ref, scale1_ref, out_ref) = refs
-        sum_ref = None
-
-    def epilogue(acc):
-        acc = acc + corr0_ref[...]
-        # 3x3 epilogue -> u8 intermediate, pre-shifted to s8 for the MXU.
-        # Stays in VMEM: the x86 register-residency property
-        # (jit_conv_kernel.cc:275-277) maps to "never leaves the chip".
-        x1 = requant_to_u8_centered(
-            acc, bias0_ref[...] if cfg.conv0_with_bias else None,
-            scale0_ref[...], cfg.conv0_round)          # (T*iwp, ocp) s8
-        acc1 = jnp.dot(x1, w1_ref[...], preferred_element_type=jnp.int32)
-        acc1 = acc1 + corr1_ref[...]
-        if emit_acc1:
-            # TP partial-sum mode: the raw s32 1x1 accumulator leaves the
-            # kernel; psum over the tp axis then requant happen outside
-            # (parallel/shard.py — requant is nonlinear so it must follow
-            # the collective). int32 adds commute => bit-exact vs
-            # single-device.
-            out_ref[0] = acc1
-            return
-        res = requant(acc1,
-                      bias1_ref[...] if cfg.conv1_with_bias else None,
-                      scale1_ref[...], cfg.conv1_relu, cfg.conv1_round,
-                      cfg.dst_dt,
-                      sum_term=None if sum_ref is None
-                      else _sum_term(sum_ref, cfg))
-        out_ref[0] = res[:, :cfg.oc1x1]
-
-    _acc_or_chunk(src_ref, w3_ref, cfg, ccfg, scratch_ref, epilogue)
-
-
-def _vec_spec(n, rank3: bool = False):
-    ix = (lambda b, t, c: (0, 0)) if rank3 else (lambda b, t: (0, 0))
-    return pl.BlockSpec((1, n), ix, memory_space=pltpu.VMEM)
-
-
-def _conv_pallas(cfg: ConvConfig, srcp, w3, corr0, bias0, scale0,
-                 w1, corr1, bias1, scale1, sum_src=None,
-                 emit_acc1: bool = False):
-    """Stride-1 Pallas path over the flat (ihp*iwp8, icp) image.
-
-    emit_acc1: fused path only — emit the raw s32 1x1 accumulator (all
-    oc1x1p lanes) instead of the requantized dst, for TP partial sums.
-
-    cfg.ic_chunks > 1 adds an input-channel grid dimension (innermost):
-    each step loads only its icp/ic_chunks lanes of the image and its K
-    panel, accumulating partials in VMEM scratch — the reference's
-    bounded-working-set ic chunking (src/op_conv.cc:96-122,
-    nb_ic_blocking src/jit_conv_kernel.cc:643-646)."""
-    import dataclasses
-
-    n = srcp.shape[0]
-    ihp = cfg.ih + 2 * cfg.ph
-    iwp = _flat_iwp(cfg)
-    flat = srcp.reshape(n, ihp * iwp, cfg.icp)
-    chunks = cfg.ic_chunks
-    rank3 = chunks > 1
-    out_oc = cfg.oc1x1 if cfg.fuse_conv1x1 else cfg.oc
-    if emit_acc1:
-        out_oc = cfg.oc1x1p
-    m_tile = cfg.row_tile * iwp
-    ccfg = None
-    scratch_shapes = []
-    if rank3:
-        icp_c = cfg.icp // chunks
-        ccfg = dataclasses.replace(cfg, icp=icp_c)
-        k_dim = cfg.kh * cfg.kw * icp_c
-        # regroup the K panel rows (kw, kh, ic)-major -> per-chunk panels
-        w3 = w3.reshape(cfg.kw * cfg.kh, chunks, icp_c, cfg.ocp)
-        w3 = jnp.transpose(w3, (1, 0, 2, 3)).reshape(chunks, k_dim, cfg.ocp)
-        grid = (cfg.bs, cfg.oh // cfg.row_tile, chunks)
-        src_spec = pl.BlockSpec((1, ihp * iwp, icp_c),
-                                lambda b, t, c: (b, 0, c),
-                                memory_space=pltpu.VMEM)
-        w3_spec = pl.BlockSpec((1, k_dim, cfg.ocp),
-                               lambda b, t, c: (c, 0, 0),
-                               memory_space=pltpu.VMEM)
-        ix_tile = lambda b, t, c: (b, t, 0)  # noqa: E731
-        ix_const = lambda b, t, c: (0, 0)  # noqa: E731
-        scratch_shapes = [pltpu.VMEM((m_tile, cfg.ocp), jnp.int32)]
-    else:
-        k_dim = cfg.kh * cfg.kw * cfg.icp
-        grid = (cfg.bs, cfg.oh // cfg.row_tile)
-        src_spec = pl.BlockSpec((1, ihp * iwp, cfg.icp),
-                                lambda b, t: (b, 0, 0),
-                                memory_space=pltpu.VMEM)
-        w3_spec = pl.BlockSpec((k_dim, cfg.ocp), lambda b, t: (0, 0),
-                               memory_space=pltpu.VMEM)
-        ix_tile = lambda b, t: (b, t, 0)  # noqa: E731
-        ix_const = lambda b, t: (0, 0)  # noqa: E731
-    out_spec = pl.BlockSpec((1, m_tile, out_oc), ix_tile,
-                            memory_space=pltpu.VMEM)
-    in_specs = [src_spec, w3_spec, _vec_spec(cfg.ocp, rank3),
-                _vec_spec(cfg.ocp, rank3), _vec_spec(cfg.ocp, rank3)]
-    args = [flat, w3, corr0.reshape(1, -1), bias0.reshape(1, -1),
-            scale0.reshape(1, -1)]
-    if cfg.fuse_conv1x1:
-        kernel = functools.partial(_conv_fused_kernel, cfg=cfg,
-                                   emit_acc1=emit_acc1, ccfg=ccfg)
-        in_specs += [
-            pl.BlockSpec((cfg.ocp, cfg.oc1x1p), ix_const,
-                         memory_space=pltpu.VMEM),
-            _vec_spec(cfg.oc1x1p, rank3)]
-        args += [w1, corr1.reshape(1, -1)]
-        if not emit_acc1:
-            in_specs += [_vec_spec(cfg.oc1x1p, rank3),
-                         _vec_spec(cfg.oc1x1p, rank3)]
-            args += [bias1.reshape(1, -1), scale1.reshape(1, -1)]
-    else:
-        kernel = functools.partial(_conv_kernel, cfg=cfg, ccfg=ccfg)
-    if cfg.with_sum:
-        # expand the sum operand to the flat (oh*iwp8, ocp) layout; padded
-        # columns/lanes feed only discarded outputs
-        ocp_out = cfg.oc1x1p if cfg.fuse_conv1x1 else cfg.ocp
-        sflat = jnp.pad(sum_src, ((0, 0), (0, 0), (0, iwp - cfg.ow),
-                                  (0, ocp_out - out_oc)))
-        sflat = sflat.reshape(n, cfg.oh * iwp, ocp_out)
-        in_specs.append(pl.BlockSpec((1, m_tile, ocp_out), ix_tile,
-                                     memory_space=pltpu.VMEM))
-        args.append(sflat)
-
-    flops = 2 * m_tile * cfg.kh * cfg.kw * cfg.icp * cfg.ocp
-    bytes_accessed = (ihp * iwp * cfg.icp + cfg.kh * cfg.kw * cfg.icp
-                      * cfg.ocp + m_tile * out_oc * cfg.dst_dt.size)
-    if cfg.fuse_conv1x1:
-        flops += 2 * m_tile * cfg.ocp * cfg.oc1x1p
-        bytes_accessed += cfg.ocp * cfg.oc1x1p
-    ntiles = grid[0] * grid[1]
-
-    out = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct(
-            (cfg.bs, cfg.oh * iwp, out_oc),
-            np.int32 if emit_acc1 else cfg.dst_dt.np),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_spec,
-        scratch_shapes=scratch_shapes,
-        # batch and row-tile dims are independent (unique out block per
-        # step); the ic-chunk dim accumulates into scratch -> arbitrary
-        compiler_params=env.tpu_compiler_params(
-            ("parallel", "parallel") + (("arbitrary",) if rank3 else ())),
-        cost_estimate=pl.CostEstimate(
-            flops=flops * ntiles,
-            bytes_accessed=bytes_accessed * ntiles,
-            transcendentals=0),
-        interpret=env.interpret_kernels(),
-    )(*args)
-    # columns >= ow are the wrap-around pixels; slice them away (fused by XLA)
-    return out.reshape(cfg.bs, cfg.oh, iwp, out_oc)[:, :, :cfg.ow, :]
-
-
-def _conv_xla(cfg: ConvConfig, srcp, w3, corr0, bias0, scale0,
-              w1, corr1, bias1, scale1, sum_src=None):
-    """Strided fallback: same numerics, XLA ops (int8 dot_general)."""
-    taps = []
-    for kj in range(cfg.kw):        # kj-major: matches the packed row order
-        for ki in range(cfg.kh):
-            h_hi = ki + (cfg.oh - 1) * cfg.sh + 1
-            w_hi = kj + (cfg.ow - 1) * cfg.sw + 1
-            taps.append(srcp[:, ki:h_hi:cfg.sh, kj:w_hi:cfg.sw, :])
-    patch = jnp.concatenate(taps, axis=-1)  # (n, oh, ow, kw*kh*icp)
-    acc = jax.lax.dot_general(patch, w3, (((3,), (0,)), ((), ())),
-                              preferred_element_type=jnp.int32)
-    acc = acc + corr0.reshape(1, 1, 1, -1)
+def _final(cfg: ConvConfig, plan: FlatPlan, acc, bias, scale, relu: bool,
+           mode: round_mode, sum_blk, pos, rnd):
+    """Requant of the last stage (acc already u8-shift corrected). Shared
+    by the kernel (one block, one lane chunk) and the XLA twin (whole
+    arrays). sum_blk: the sum operand at the output positions; pos: the
+    flat output positions (packed mask); rnd(x, mode): rounding."""
+    if plan.mask is not None:
+        row0, halo, h, col_off, w = plan.mask
+        col = jax.lax.rem(pos, np.int32(plan.iwp))
+        row = row0 + jax.lax.div(pos, np.int32(plan.iwp))
+        mask = ((col >= col_off) & (col < col_off + w)
+                & (row >= halo) & (row < halo + h)).astype(jnp.float32)
+        sum_rounded = None
+        if sum_blk is not None:
+            # packed sum operand: centered u8; non-image slots hold u8 0
+            sv = sum_blk.astype(jnp.int32) + 128
+            sum_rounded = rnd(sv.astype(jnp.float32)
+                              * np.float32(cfg.sum_scale), mode)
+        return requant_to_u8_centered(acc, bias, scale, mode,
+                                      zero_mask=mask,
+                                      sum_rounded=sum_rounded, round_fn=rnd)
     sum_term = None
-    if cfg.with_sum:
-        st = sum_src
+    if sum_blk is not None:
+        st = sum_blk
         if cfg.sum_dt in (dtype.u8, dtype.s8):
             st = st.astype(jnp.int32)
         sum_term = st.astype(jnp.float32) * np.float32(cfg.sum_scale)
+    return requant(acc, bias, scale, relu, mode, cfg.dst_dt,
+                   sum_term=sum_term, round_fn=rnd)
+
+
+def _stage0(cfg: ConvConfig, acc, vec, rnd):
+    """3x3 stage of a fused op: corrected acc -> centered u8 intermediate."""
+    return requant_to_u8_centered(
+        acc + vec("corr0"), vec("bias0") if cfg.conv0_with_bias else None,
+        vec("scale0"), cfg.conv0_round, round_fn=rnd)
+
+
+def _last(cfg: ConvConfig, plan: FlatPlan, acc, vec, sum_blk, pos, rnd,
+          emit_acc1: bool):
+    """Last stage from its raw int32 accumulator."""
+    if cfg.fuse_conv1x1:
+        acc = acc + vec("corr1")
+        if emit_acc1:
+            return acc
+        return _final(cfg, plan, acc,
+                      vec("bias1") if cfg.conv1_with_bias else None,
+                      vec("scale1"), cfg.conv1_relu, cfg.conv1_round,
+                      sum_blk, pos, rnd)
+    return _final(cfg, plan, acc + vec("corr0"),
+                  vec("bias0") if cfg.conv0_with_bias else None,
+                  vec("scale0"), cfg.conv0_relu, cfg.conv0_round,
+                  sum_blk, pos, rnd)
+
+
+_VEC_KEYS = ("corr0", "bias0", "scale0", "corr1", "bias1", "scale1")
+
+
+def _out_lanes_dtype(cfg: ConvConfig, plan: FlatPlan, emit_acc1: bool):
+    lanes = cfg.oc1x1p if cfg.fuse_conv1x1 else cfg.ocp
+    if emit_acc1:
+        return lanes, jnp.int32
+    if plan.mask is not None:
+        return lanes, jnp.int8
+    return lanes, cfg.dst_dt.np
+
+
+# ------------------------------------------------------ Triton kernel
+
+def _kernel(*refs, cfg: ConvConfig, plan: FlatPlan, cps, r_in: int,
+            lead: int, bm: int, bk: int, bn0: int, bn1: int, has_sum: bool,
+            sum_off: int, emit_acc1: bool):
+    n_src = len(cps)
+    x_refs, refs = refs[:n_src], refs[n_src:]
+    w3_ref, refs = refs[0], refs[1:]
+    vrefs = dict(zip(("corr0", "bias0", "scale0"), refs[:3]))
+    refs = refs[3:]
+    w1_ref = None
+    if cfg.fuse_conv1x1:
+        w1_ref, refs = refs[0], refs[1:]
+        vrefs.update(zip(("corr1", "bias1", "scale1"), refs[:3]))
+        refs = refs[3:]
+    sum_ref = None
+    if has_sum:
+        sum_ref, refs = refs[0], refs[1:]
+    (out_ref,) = refs
+
+    b = pl.program_id(0)
+    p0 = pl.program_id(1) * bm
+    pos = p0 + jnp.arange(bm, dtype=jnp.int32)
+    icp = sum(cps)
+    ntap = cfg.kh * cfg.kw
+    row_ok = (pos < plan.m_out)[:, None]
+
+    def conv0(j0):
+        """3x3 accumulator of output lanes [j0*bn0, (j0+1)*bn0): the K
+        loop over taps x channel blocks, in registers."""
+        acc = jnp.zeros((bm, bn0), jnp.int32)
+        lane0 = 0
+        for x_ref, cp in zip(x_refs, cps):
+            nch = cp // bk
+
+            def body(i, acc, x_ref=x_ref, nch=nch, lane0=lane0):
+                div, rem = jax.lax.div, jax.lax.rem
+                t, c = (i, 0) if nch == 1 else (div(i, nch), rem(i, nch))
+                kj, ki = div(t, cfg.kh), rem(t, cfg.kh)
+                off = ((plan.row_base + ki) * plan.iwp + plan.col_shift
+                       + kj + lead)
+                xt = plgpu.load(
+                    x_ref.at[b, pl.ds(p0 + off, bm), pl.ds(c * bk, bk)],
+                    mask=((pos + off) < r_in)[:, None], other=0)
+                wt = w3_ref[pl.ds(j0 * bn0, bn0),
+                            pl.ds(t * icp + lane0 + c * bk, bk)]
+                return acc + pl.dot(xt, wt, trans_b=True)
+
+            acc = jax.lax.fori_loop(0, ntap * nch, body, acc)
+            lane0 += cp
+        return acc
+
+    def vec_at(j, bn):
+        return lambda k: vrefs[k][pl.ds(j * bn, bn)][None, :]
+
+    def sum_at(j, bn):
+        if not has_sum:
+            return None
+        return plgpu.load(
+            sum_ref.at[b, pl.ds(p0 + sum_off, bm), pl.ds(j * bn, bn)],
+            mask=((pos + sum_off) < sum_ref.shape[1])[:, None], other=0)
+
+    def store(j, bn, res):
+        plgpu.store(out_ref.at[b, pl.ds(p0, bm), pl.ds(j * bn, bn)],
+                    res.astype(out_ref.dtype), mask=row_ok)
+
+    n0 = cfg.ocp // bn0
     if not cfg.fuse_conv1x1:
-        res = requant(acc, bias0.reshape(1, 1, 1, -1) if cfg.conv0_with_bias
-                      else None, scale0.reshape(1, 1, 1, -1),
-                      cfg.conv0_relu, cfg.conv0_round, cfg.dst_dt,
-                      sum_term=sum_term)
-        return res[..., :cfg.oc]
-    x1 = requant_to_u8_centered(
-        acc, bias0.reshape(1, 1, 1, -1) if cfg.conv0_with_bias else None,
-        scale0.reshape(1, 1, 1, -1), cfg.conv0_round)
-    acc1 = jax.lax.dot_general(x1, w1, (((3,), (0,)), ((), ())),
-                               preferred_element_type=jnp.int32)
-    acc1 = acc1 + corr1.reshape(1, 1, 1, -1)
-    res = requant(acc1, bias1.reshape(1, 1, 1, -1) if cfg.conv1_with_bias
-                  else None, scale1.reshape(1, 1, 1, -1),
-                  cfg.conv1_relu, cfg.conv1_round, cfg.dst_dt,
-                  sum_term=sum_term)
-    return res[..., :cfg.oc1x1]
+        for j0 in range(n0):
+            store(j0, bn0, _last(cfg, plan, conv0(j0), vec_at(j0, bn0),
+                                 sum_at(j0, bn0), pos[:, None], _kround,
+                                 emit_acc1))
+        return
+    n1 = cfg.oc1x1p // bn1
+    acc1 = [jnp.zeros((bm, bn1), jnp.int32) for _ in range(n1)]
+    for j0 in range(n0):
+        x1 = _stage0(cfg, conv0(j0), vec_at(j0, bn0), _kround)
+        for j1 in range(n1):
+            acc1[j1] = acc1[j1] + pl.dot(
+                x1, w1_ref[pl.ds(j1 * bn1, bn1), pl.ds(j0 * bn0, bn0)],
+                trans_b=True)
+    for j1 in range(n1):
+        store(j1, bn1, _last(cfg, plan, acc1[j1], vec_at(j1, bn1),
+                             sum_at(j1, bn1), pos[:, None], _kround,
+                             emit_acc1))
+
+
+# Tiles: the fastest of a sweep over the flagship op and the FusionNet
+# forward on an H100 (docs/PERF.md): BM output positions per program,
+# channel blocks of at most BK, lane chunks of at most BN.
+BM, NUM_WARPS, NUM_STAGES, BK, BN = 128, 8, 3, 128, 256
+
+
+def _conv_triton(cfg: ConvConfig, plan: FlatPlan, xs, ops, sum_arr,
+                 sum_off: int, emit_acc1: bool):
+    n = xs[0].shape[0]
+    cps = tuple(x.shape[-1] for x in xs)
+    lead = max(0, -min(plan.row_base * plan.iwp + plan.col_shift, 0))
+    if lead:
+        xs = [jnp.pad(x, ((0, 0), (lead, 0), (0, 0)),
+                      constant_values=np.int8(-128)) for x in xs]
+    lanes, out_dt = _out_lanes_dtype(cfg, plan, emit_acc1)
+    has_sum = sum_arr is not None
+    # weights K-major (N, K): int8 tensor-core products take both operands
+    # with K contiguous
+    args = list(xs) + [ops[0].T] + [o.reshape(-1) for o in ops[1:4]]
+    if cfg.fuse_conv1x1:
+        args += [ops[4].T] + [o.reshape(-1) for o in ops[5:8]]
+    if has_sum:
+        args.append(sum_arr)
+    kernel = functools.partial(
+        _kernel, cfg=cfg, plan=plan, cps=cps, r_in=xs[0].shape[1],
+        lead=lead, bm=BM, bk=min(_pow2_divisor(cp, BK) for cp in cps),
+        bn0=_pow2_divisor(cfg.ocp, BN),
+        bn1=_pow2_divisor(cfg.oc1x1p, BN) if cfg.fuse_conv1x1 else 0,
+        has_sum=has_sum, sum_off=sum_off, emit_acc1=emit_acc1)
+    return pl.pallas_call(
+        kernel,
+        out_shape=jax.ShapeDtypeStruct((n, plan.m_out, lanes), out_dt),
+        grid=(n, pl.cdiv(plan.m_out, BM)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
+        interpret=env.interpret_kernels(),
+        name="df_flat_conv",
+    )(*args)
+
+
+# --------------------------------------------------------- XLA twin
+
+def _conv_xla(cfg: ConvConfig, plan: FlatPlan, xs, ops, sum_arr,
+              sum_off: int, emit_acc1: bool):
+    """The same computation as whole-array XLA ops: the kh*kw shifted flat
+    slices concatenated into an im2col patch, one int8 GEMM with int32
+    accumulation. (XLA has no int8 convolution with an int32 result on
+    the GPU: cuDNN's integer convolutions emit s8 or f32 only.)"""
+    x = xs[0] if len(xs) == 1 else jnp.concatenate(xs, axis=-1)
+    offs = [(plan.row_base + ki) * plan.iwp + plan.col_shift + kj
+            for kj in range(cfg.kw) for ki in range(cfg.kh)]
+    lead = max(0, -min(offs))
+    tail = max(0, max(offs) + plan.m_out - x.shape[1])
+    x = jnp.pad(x, ((0, 0), (lead, tail), (0, 0)),
+                constant_values=np.int8(-128))
+    patch = jnp.concatenate(
+        [jax.lax.slice_in_dim(x, o + lead, o + lead + plan.m_out, axis=1)
+         for o in offs], axis=-1)
+    acc = jax.lax.dot_general(patch, ops[0], (((2,), (0,)), ((), ())),
+                              preferred_element_type=jnp.int32)
+    sum_blk = None
+    if sum_arr is not None:
+        sum_blk = jax.lax.slice_in_dim(
+            jnp.pad(sum_arr, ((0, 0), (0, max(0, sum_off + plan.m_out
+                                              - sum_arr.shape[1])),
+                              (0, 0))),
+            sum_off, sum_off + plan.m_out, axis=1)
+    pos = jnp.arange(plan.m_out, dtype=jnp.int32).reshape(1, -1, 1)
+    res = _epilogue_xla(cfg, plan, acc, ops, sum_blk, pos, emit_acc1)
+    return res.astype(_out_lanes_dtype(cfg, plan, emit_acc1)[1])
+
+
+def _epilogue_xla(cfg: ConvConfig, plan: FlatPlan, acc, ops, sum_blk, pos,
+                  emit_acc1: bool):
+    vecs = dict(zip(_VEC_KEYS, tuple(ops[1:4]) + tuple(ops[5:8])))
+
+    def vec(k):
+        return vecs[k].reshape((1,) * (acc.ndim - 1) + (-1,))
+
+    if cfg.fuse_conv1x1:
+        x1 = _stage0(cfg, acc, vec, round_f32)
+        acc = jax.lax.dot_general(x1, ops[4], (((x1.ndim - 1,), (0,)),
+                                               ((), ())),
+                                  preferred_element_type=jnp.int32)
+    return _last(cfg, plan, acc, vec, sum_blk, pos, round_f32, emit_acc1)
+
+
+IMPLS = {"triton": _conv_triton, "xla": _conv_xla}
+_impl = ["triton"]
+
+
+@contextlib.contextmanager
+def use_impl(name: str):
+    """Run every stride-1 conv traced inside the block with ``name``
+    (``"triton"``, the kernel, or ``"xla"``, its plain twin) — for timing
+    the kernel against what XLA makes of the plain version. Clears JAX's
+    trace caches on entry and exit so jitted callers retrace."""
+    if name not in IMPLS:
+        raise ValueError(f"unknown conv implementation {name!r}")
+    prev = _impl[0]
+    _impl[0] = name
+    jax.clear_caches()
+    try:
+        yield
+    finally:
+        _impl[0] = prev
+        jax.clear_caches()
+
+
+def flat_conv(cfg: ConvConfig, plan: FlatPlan, xs, ops, *, sum_arr=None,
+              sum_off: int = 0, emit_acc1: bool = False):
+    """Stride-1 conv over flat inputs (module docstring).
+
+    xs: tuple of (N, R, cp_i) centered-s8 arrays whose lane concatenation
+    is the conv input (cp_i sum to cfg.icp). ops: the packed operands
+    (w3, corr0, bias0, scale0[, w1, corr1, bias1, scale1]). sum_arr: the
+    eltwise-sum operand, flat, read at output position p + sum_off.
+    Returns (N, plan.m_out, ocp_out): the requantized output (centered s8
+    when plan.mask is set), or the raw 1x1 int32 accumulator with
+    emit_acc1 (tensor-parallel partial sums)."""
+    return IMPLS[_impl[0]](cfg, plan, tuple(xs), tuple(ops), sum_arr,
+                           sum_off, emit_acc1)
+
+
+# ------------------------------------------------------- dense entry
+
+def _dense_plan(cfg: ConvConfig) -> FlatPlan:
+    return FlatPlan(iwp=round_up(cfg.iw + 2 * cfg.pw, 8), rows_out=cfg.oh)
+
+
+def _dense_sum_flat(cfg: ConvConfig, plan: FlatPlan, sum_src):
+    """(n, oh, ow, oc) -> (n, oh*iwp, ocp_out); padded slots feed only
+    discarded outputs."""
+    ocp_out = cfg.oc1x1p if cfg.fuse_conv1x1 else cfg.ocp
+    out_oc = cfg.oc1x1 if cfg.fuse_conv1x1 else cfg.oc
+    s = jnp.pad(sum_src, ((0, 0), (0, 0), (0, plan.iwp - cfg.ow),
+                          (0, ocp_out - out_oc)))
+    return s.reshape(s.shape[0], plan.m_out, ocp_out)
+
+
+def _conv_dense(cfg: ConvConfig, src_u8, ops, sum_src=None,
+                emit_acc1: bool = False):
+    plan = _dense_plan(cfg)
+    srcp = layout.prep_src(cfg, src_u8, xp=jnp)    # (n, ihp, iwp, icp) s8
+    flat = srcp.reshape(srcp.shape[0], -1, cfg.icp)
+    sflat = None if sum_src is None else _dense_sum_flat(cfg, plan, sum_src)
+    out = flat_conv(cfg, plan, (flat,), ops, sum_arr=sflat,
+                    emit_acc1=emit_acc1)
+    lanes = out.shape[-1]
+    out = out.reshape(cfg.bs, cfg.oh, plan.iwp, lanes)[:, :, :cfg.ow]
+    if emit_acc1:
+        return out
+    return out[..., :cfg.oc1x1 if cfg.fuse_conv1x1 else cfg.oc]
+
+
+def _conv_strided(cfg: ConvConfig, src_u8, ops, sum_src=None):
+    """Strided conv as plain XLA: strided tap slices, one int8 GEMM with
+    int32 accumulation, the same requant epilogue."""
+    x = (jnp.asarray(src_u8).astype(jnp.int16) - 128).astype(jnp.int8)
+    x = jnp.pad(x, ((0, 0), (cfg.ph, cfg.ph), (cfg.pw, cfg.pw),
+                    (0, cfg.icp - cfg.ic)), constant_values=np.int8(-128))
+    taps = [x[:, ki:ki + (cfg.oh - 1) * cfg.sh + 1:cfg.sh,
+              kj:kj + (cfg.ow - 1) * cfg.sw + 1:cfg.sw]
+            for kj in range(cfg.kw) for ki in range(cfg.kh)]
+    acc = jax.lax.dot_general(jnp.concatenate(taps, axis=-1), ops[0],
+                              (((3,), (0,)), ((), ())),
+                              preferred_element_type=jnp.int32)
+    sum_blk = None
+    if sum_src is not None:
+        ocp_out = cfg.oc1x1p if cfg.fuse_conv1x1 else cfg.ocp
+        sum_blk = jnp.pad(sum_src, ((0, 0),) * 3
+                          + ((0, ocp_out - sum_src.shape[-1]),))
+    res = _epilogue_xla(cfg, FlatPlan(iwp=cfg.ow, rows_out=cfg.oh), acc,
+                        ops, sum_blk, None, False)
+    return res[..., :cfg.oc1x1 if cfg.fuse_conv1x1 else cfg.oc]
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def _conv_call(cfg: ConvConfig, src_u8, w3, corr0, bias0, scale0,
                w1=None, corr1=None, bias1=None, scale1=None, sum_src=None):
-    srcp = layout.prep_src(cfg, src_u8, xp=jnp)    # (n, ihp, iwp8, icp) s8
-    return _conv_pallas(cfg, srcp, w3, corr0, bias0, scale0,
-                        w1, corr1, bias1, scale1, sum_src=sum_src)
+    ops = (w3, corr0, bias0, scale0)
+    if cfg.fuse_conv1x1:
+        ops += (w1, corr1, bias1, scale1)
+    if cfg.sh > 1 or cfg.sw > 1:
+        return _conv_strided(cfg, src_u8, ops, sum_src)
+    return _conv_dense(cfg, src_u8, ops, sum_src)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def conv_fused_acc1(cfg: ConvConfig, src_u8, w3, corr0, bias0, scale0,
                     w1, corr1):
-    """Fused conv emitting the raw s32 1x1 accumulator (pre-requant) via
-    the flagship Pallas kernel — the TP local step (parallel/shard.py).
+    """Fused stride-1 conv emitting the raw s32 1x1 accumulator
+    (pre-requant) — the tensor-parallel local step (parallel/shard.py).
     Returns (n, oh, ow, oc1x1p) int32 (padded lanes kept: bias/scale
     vectors downstream are ocp-padded too)."""
-    srcp = layout.prep_src(cfg, src_u8, xp=jnp)
-    return _conv_pallas(cfg, srcp, w3, corr0, bias0, scale0,
-                        w1, corr1, None, None, emit_acc1=True)
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "cfg2"))
-def _conv_call_s2d(cfg: ConvConfig, cfg2: ConvConfig, src_u8,
-                   w3, corr0, bias0, scale0,
-                   w1=None, corr1=None, bias1=None, scale1=None,
-                   sum_src=None):
-    """Strided conv via the stride-1 Pallas kernel on the s2d grid.
-
-    w3 must be packed from ``layout.s2d_weights`` with cfg2's channel
-    padding; all other operands are stride-agnostic (output geometry,
-    scales and the fused 1x1 carry over unchanged)."""
-    srcp = layout.prep_src_s2d(cfg, cfg2, src_u8, xp=jnp)
-    return _conv_pallas(cfg2, srcp, w3, corr0, bias0, scale0,
-                        w1, corr1, bias1, scale1, sum_src=sum_src)
+    zeros = jnp.zeros_like(corr1, dtype=jnp.float32)
+    return _conv_dense(cfg, src_u8, (w3, corr0, bias0, scale0,
+                                     w1, corr1, zeros, zeros),
+                       emit_acc1=True)
 
 
 class ConvOp:
@@ -435,13 +462,7 @@ class ConvOp:
     def __init__(self, cfg: ConvConfig, wei, bia=None, wei1x1=None,
                  bia1x1=None):
         self.cfg = cfg
-        # strided configs run the stride-1 Pallas kernel on the s2d grid
-        # (see module docstring); weights are remapped once at pack time
-        self.cfg2 = layout.s2d_cfg(cfg) if (cfg.sh > 1 or cfg.sw > 1) \
-            else None
-        if self.cfg2 is not None:
-            wei = layout.s2d_weights(cfg, np.asarray(wei))
-        packed = layout.pack_all(self.cfg2 or cfg, wei, bia, wei1x1, bia1x1)
+        packed = layout.pack_all(cfg, wei, bia, wei1x1, bia1x1)
         keys = self._OPERAND_KEYS[:8 if cfg.fuse_conv1x1 else 4]
         self._cache = OperandCache([packed[k] for k in keys])
 
@@ -458,27 +479,19 @@ class ConvOp:
         src = jnp.asarray(src_u8)
         if self.cfg.with_sum and sum_src is None:
             raise ValueError("config has a sum post-op; pass sum_src")
-        if self.cfg2 is not None:
-            call, cfgs = _conv_call_s2d, (self.cfg, self.cfg2)
-        else:
-            call, cfgs = _conv_call, (self.cfg,)
         if env.dump_code() and not getattr(self, "_dumped", False):
             # analogue of DEEPFUSION_DUMP_CODE (src/jit_generator.h:261-296)
             from ..utils.profiler import maybe_dump_lowered
             name = "conv_fused" if self.cfg.fuse_conv1x1 else "conv"
-            maybe_dump_lowered(name, call, *cfgs, src, *self._operands)
+            maybe_dump_lowered(name, _conv_call, self.cfg, src,
+                               *self._operands)
             self._dumped = True
-        kw = {}
         if operands is None:
             operands = self._cache.for_call(src)
-        if self.cfg.fuse_conv1x1:
-            args = operands
-        else:
-            args = operands[:4]
-            kw = dict(w1=None, corr1=None, bias1=None, scale1=None)
+        kw = {}
         if sum_src is not None:
             kw["sum_src"] = jnp.asarray(sum_src)
-        return call(*cfgs, src, *args, **kw)
+        return _conv_call(self.cfg, src, *operands, **kw)
 
     # --- packed-weight persistence (stateless-inference checkpoint
     # analogue; the reference keeps weights caller-owned, SURVEY.md §5) ---
@@ -499,7 +512,6 @@ class ConvOp:
         cfg = load_configs(data["__cfg__"], cfg=ConvConfig)["cfg"]
         op = cls.__new__(cls)
         op.cfg = cfg
-        op.cfg2 = layout.s2d_cfg(cfg) if (cfg.sh > 1 or cfg.sw > 1) else None
         keys = cls._OPERAND_KEYS[:8 if cfg.fuse_conv1x1 else 4]
         op._cache = OperandCache([data[k] for k in keys])
         return op

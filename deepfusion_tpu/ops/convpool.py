@@ -1,21 +1,7 @@
-"""Single-kernel fused conv3x3(+ReLU)(+sum)+pool — the reference's roadmap
-op (README.md:64-65; spec pipeline in test/test_conv_relu_pooling.cc:264-281
-and :313-391) executed as ONE Pallas program: the conv row-tile is pooled in
-the epilogue before the HBM store, so the conv output never round-trips
-through HBM (same philosophy as the 3x3->1x1 register residency and the
-packed path's ``packed_sum_relu_maxpool2``).
-
-Fast-path legality (canonical VGG/ResNet downsampling):
-  * conv stride 1 (strided convs take the s2d path; composition applies)
-  * pool 2x2, stride 2, pad 0, even conv output h/w (no ceil overhang)
-  * kinds: max (any dst), avg (8-bit or f32 dst; s32 avg sums can exceed
-    f32's exact-integer range so they stay on the two-kernel composition)
-
-Exactness: the epilogue keeps the requantized conv result as *integral f32*
-clipped to the dst range (= the saturated value, exactly), pools in f32
-(max commutes with the monotone saturation; avg sums 4 exact integers
-<= 2^24 so the f32 sum is exact), rounds the avg with the pool round mode,
-and casts once at the end — bit-identical to pool_ref(conv_ref(...)).
+"""Conv3x3(+ReLU)(+sum)+pool — the reference's roadmap op (README.md:64-65;
+spec pipeline in test/test_conv_relu_pooling.cc:264-281 and :313-391): the
+conv path (ops/conv.py) followed by the pooling window (ops/pool.py) under
+one jit. Bit-identical to ``pool_ref(conv_ref(...))``.
 """
 from __future__ import annotations
 
@@ -24,208 +10,31 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..config import ConvConfig, PoolConfig
-from ..types import dtype
-from ..utils import env
 from ..utils.opcache import OperandCache
 from . import layout
-from .conv import _acc_kw_rolled, _flat_iwp, _row_patch, _sum_term, _vec_spec
-from .requant import round_f32, saturate_to
+from .conv import _conv_call
+from .pool import _pool_call
 
 
-def pool2_fusable(cfg: ConvConfig, pc: PoolConfig) -> bool:
-    """Can (cfg, pc) run as one kernel? (See module docstring.)
-
-    Strided convs qualify through the space-to-depth lowering
-    (``layout.s2d_cfg``): the kernel that actually runs is stride-1 with
-    identical (oh, ow), so fusability is the s2d config's. This makes a
-    ResNet 7x7/s2 stem + maxpool2 a SINGLE kernel — the conv output
-    (40 MB at the 50x3x224x224 spec shape) never exists in HBM."""
-    if (cfg.sh, cfg.sw) != (1, 1):
-        return (not cfg.fuse_conv1x1
-                and pool2_fusable(layout.s2d_cfg(cfg), pc))
-    return (not cfg.fuse_conv1x1
-            and (pc.kh, pc.kw, pc.sh, pc.sw) == (2, 2, 2, 2)
-            and (pc.ph, pc.pw, pc.pb, pc.pr) == (0, 0, 0, 0)
-            and cfg.oh % 2 == 0 and cfg.ow % 2 == 0
-            and (pc.kind == "max" or cfg.dst_dt != dtype.s32)
-            and _even_tile_unchunked(cfg) is not None)
-
-
-def _even_tile_unchunked(cfg: ConvConfig):
-    """Largest even row_tile that fits the VMEM budget with ic_chunks=1.
-
-    The pool epilogue pairs conv rows within a tile, so the fused kernel
-    needs an even tile and cannot chunk input channels. Strided s2d
-    configs multiply icp by sh*sw (e.g. 512ch 3x3/s2 -> icp 2048), so a
-    config whose tiling chose ic-chunking to fit VMEM may not fit
-    un-chunked at all — those compose two kernels instead of compiling a
-    VMEM-thrashing fusion (ADVICE r3). None => not fusable."""
-    from ..config import _pick_row_tile
-    best = _pick_row_tile(cfg.oh, cfg.ow, cfg.kh, cfg.kw, 1, cfg.iw,
-                          cfg.icp, cfg.ocp, 0, ic_chunks=1)
-    if best is None:
-        return None
-    evens = [t for t in range(2, best + 1, 2) if cfg.oh % t == 0]
-    return evens[-1] if evens else None
-
-
-def _requant_presat(acc, bias, scale, with_relu, mode, dst: dtype,
-                    sum_term=None):
-    """requant() up to (but not including) the final cast: returns f32
-    values already clipped to dst's range (integral for int dst)."""
-    x = acc.astype(jnp.float32)
-    if bias is not None:
-        x = x + bias
-    x = x * scale
-    relu = with_relu or dst == dtype.u8
-    if sum_term is not None and dst != dtype.f32:
-        x = round_f32(x, mode) + round_f32(sum_term, mode)
-        if relu:
-            x = jnp.maximum(x, 0.0)
-    else:
-        if sum_term is not None:
-            x = x + sum_term
-        if relu:
-            x = jnp.maximum(x, 0.0)
-        if dst != dtype.f32:
-            x = round_f32(x, mode)
-    if dst == dtype.s32:
-        x = jnp.clip(x, -2147483648.0, 2147483647.0)
-    elif dst != dtype.f32:
-        lo, hi = (-128.0, 127.0) if dst == dtype.s8 else (0.0, 255.0)
-        x = jnp.clip(x, lo, hi)
-    return x
-
-
-def _convpool_kernel(*refs, cfg: ConvConfig, pc: PoolConfig):
-    if cfg.with_sum:
-        (src_ref, w3_ref, corr0_ref, bias0_ref, scale0_ref, sum_ref,
-         out_ref) = refs
-    else:
-        src_ref, w3_ref, corr0_ref, bias0_ref, scale0_ref, out_ref = refs
-        sum_ref = None
-    T = cfg.row_tile
-    iwp = _flat_iwp(cfg)
-    patch = _row_patch(src_ref, cfg, pl.program_id(1))
-    acc = _acc_kw_rolled(patch, w3_ref, cfg)
-    acc = acc + corr0_ref[...]
-    x = _requant_presat(
-        acc, bias0_ref[...] if cfg.conv0_with_bias else None,
-        scale0_ref[...], cfg.conv0_relu, cfg.conv0_round, cfg.dst_dt,
-        sum_term=None if sum_ref is None else _sum_term(sum_ref, cfg))
-    # pool the tile in-VMEM: (T*iwp, ocp) -> (T/2, 2, iwp/2, 2, ocp).
-    # Garbage columns >= ow pool among themselves and are sliced away by
-    # the caller; rows never straddle tiles (T even, oh even, pad 0).
-    ocp = x.shape[-1]
-    x = x.reshape(T // 2, 2, iwp // 2, 2, ocp)
-    if pc.kind == "max":
-        y = jnp.maximum(jnp.maximum(x[:, 0, :, 0], x[:, 0, :, 1]),
-                        jnp.maximum(x[:, 1, :, 0], x[:, 1, :, 1]))
-    else:
-        s = (x[:, 0, :, 0] + x[:, 0, :, 1] + x[:, 1, :, 0] + x[:, 1, :, 1])
-        y = s * jnp.float32(0.25)
-        if cfg.dst_dt != dtype.f32:
-            y = round_f32(y, pc.round)
-    y = y.reshape((T // 2) * (iwp // 2), ocp)
-    out_ref[0] = saturate_to(y, cfg.dst_dt)[:, :cfg.oc]
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "pc", "cfg_orig"))
-def _convpool_call(cfg: ConvConfig, pc: PoolConfig, src_u8,
-                   w3, corr0, bias0, scale0, sum_src=None, cfg_orig=None):
-    if cfg_orig is not None:
-        # strided op: cfg is the stride-1 s2d kernel config; prep maps the
-        # original NHWC image onto the s2d grid (ops/layout.py)
-        srcp = layout.prep_src_s2d(cfg_orig, cfg, src_u8, xp=jnp)
-    else:
-        srcp = layout.prep_src(cfg, src_u8, xp=jnp)
-    n = srcp.shape[0]
-    ihp = cfg.ih + 2 * cfg.ph
-    iwp = _flat_iwp(cfg)
-    flat = srcp.reshape(n, ihp * iwp, cfg.icp)
-    k_dim = cfg.kh * cfg.kw * cfg.icp
-    grid = (cfg.bs, cfg.oh // cfg.row_tile)
-    m_tile = cfg.row_tile * iwp
-    m_out = (cfg.row_tile // 2) * (iwp // 2)
-
-    in_specs = [
-        pl.BlockSpec((1, ihp * iwp, cfg.icp), lambda b, t: (b, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((k_dim, cfg.ocp), lambda b, t: (0, 0),
-                     memory_space=pltpu.VMEM),
-        _vec_spec(cfg.ocp), _vec_spec(cfg.ocp), _vec_spec(cfg.ocp)]
-    args = [flat, w3, corr0.reshape(1, -1), bias0.reshape(1, -1),
-            scale0.reshape(1, -1)]
-    if cfg.with_sum:
-        # sum operand joins the CONV output (pre-pool), conv-row aligned
-        sflat = jnp.pad(sum_src, ((0, 0), (0, 0), (0, iwp - cfg.ow),
-                                  (0, cfg.ocp - cfg.oc)))
-        sflat = sflat.reshape(n, cfg.oh * iwp, cfg.ocp)
-        in_specs.append(pl.BlockSpec((1, m_tile, cfg.ocp),
-                                     lambda b, t: (b, t, 0),
-                                     memory_space=pltpu.VMEM))
-        args.append(sflat)
-
-    out = pl.pallas_call(
-        functools.partial(_convpool_kernel, cfg=cfg, pc=pc),
-        out_shape=jax.ShapeDtypeStruct(
-            (cfg.bs, (cfg.oh // 2) * (iwp // 2), cfg.oc), cfg.dst_dt.np),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((1, m_out, cfg.oc), lambda b, t: (b, t, 0),
-                               memory_space=pltpu.VMEM),
-        compiler_params=env.tpu_compiler_params(("parallel", "parallel")),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m_tile * k_dim * cfg.ocp * grid[0] * grid[1],
-            bytes_accessed=(ihp * iwp * cfg.icp // grid[1]
-                            + m_out * cfg.oc) * grid[0] * grid[1],
-            transcendentals=0),
-        interpret=env.interpret_kernels(),
-    )(*args)
-    return out.reshape(cfg.bs, cfg.oh // 2, iwp // 2, cfg.oc)[
-        :, :, :cfg.ow // 2, :]
-
-
-def _kernel_cfg(cfg: ConvConfig) -> ConvConfig:
-    """The stride-1 config the fused kernel actually runs: the s2d
-    equivalent for strided convs, then an even row_tile with no ic
-    chunking (the pool epilogue pairs conv rows within a tile).
-    Deterministic in cfg, so save/load can rebuild it."""
-    import dataclasses
-
-    if (cfg.sh, cfg.sw) != (1, 1):
-        cfg = layout.s2d_cfg(cfg)
-    if cfg.row_tile % 2 or cfg.ic_chunks != 1:
-        from ..utils.logger import check
-        rt = _even_tile_unchunked(cfg)
-        check(rt is not None, "convpool geometry does not fit VMEM "
-                              "un-chunked (pool2_fusable should have "
-                              "routed this to the composition)")
-        cfg = dataclasses.replace(cfg, ic_chunks=1, row_tile=rt)
-    return cfg
+@functools.partial(jax.jit, static_argnames=("cfg", "pc"))
+def _convpool_call(cfg: ConvConfig, pc: PoolConfig, src_u8, *operands,
+                   sum_src=None):
+    y = _conv_call(cfg, src_u8, *operands, sum_src=sum_src)
+    return _pool_call(pc, cfg.dst_dt, y)
 
 
 class ConvPoolOp:
-    """Pre-packed fused conv(+relu)(+sum)+pool2x2/s2 op (single kernel).
-
-    Accepts any stride pool2_fusable admits: strided convs remap weights
-    onto the s2d grid (``layout.s2d_weights``) and run the same stride-1
-    kernel — e.g. the ResNet 50x3x224x224 7x7/s2 stem + maxpool2 is one
-    Pallas program with no HBM intermediate."""
+    """Pre-packed conv(+relu)(+sum)+pool op for repeated submission."""
 
     def __init__(self, cfg: ConvConfig, pc: PoolConfig, wei, bia=None):
         from ..utils.logger import check
-        check(pool2_fusable(cfg, pc), "geometry not single-kernel fusable "
-                                      "(see convpool.pool2_fusable)")
-        self.cfg_orig = cfg
-        if (cfg.sh, cfg.sw) != (1, 1):
-            wei = layout.s2d_weights(cfg, np.asarray(wei))
-        self.cfg, self.pc = _kernel_cfg(cfg), pc
-        packed = layout.pack_all(self.cfg, wei, bia)
+        check(not cfg.fuse_conv1x1, "conv+pool takes an unfused conv")
+        check((pc.ih, pc.iw) == (cfg.oh, cfg.ow),
+              "pool input must be the conv output")
+        self.cfg, self.pc = cfg, pc
+        packed = layout.pack_all(cfg, wei, bia)
         self._cache = OperandCache([packed[k] for k in self._OPERAND_KEYS])
 
     # host-side packed operands (numpy): safe to close over in traced
@@ -238,27 +47,22 @@ class ConvPoolOp:
         """operands: optional override of the cached packed weights —
         pass them as jit ARGUMENTS from a traced caller to keep the
         compile keyed on shapes instead of weight values."""
-        kw = {}
-        if sum_src is not None:
-            kw["sum_src"] = jnp.asarray(sum_src)
-        if (self.cfg_orig.sh, self.cfg_orig.sw) != (1, 1):
-            kw["cfg_orig"] = self.cfg_orig
         src = jnp.asarray(src_u8)
         if operands is None:
             operands = self._cache.for_call(src)
-        return _convpool_call(self.cfg, self.pc, src, *operands, **kw)
+        return _convpool_call(self.cfg, self.pc, src, *operands,
+                              sum_src=None if sum_src is None
+                              else jnp.asarray(sum_src))
 
     # --- packed-weight persistence (mirrors ConvOp.save/load) ---
     _OPERAND_KEYS = ("w3", "corr0", "bias0", "scale0")
 
     def save(self, path: str):
-        """Save the packed operands + conv/pool configs to .npz. The
-        ORIGINAL (possibly strided) config is stored; the s2d/evenness
-        kernel config is rebuilt deterministically on load."""
+        """Save the packed operands + conv/pool configs to .npz."""
         from ..utils.persist import dump_configs
         arrs = {k: np.asarray(v) for k, v in
                 zip(self._OPERAND_KEYS, self._operands)}
-        np.savez(path, __cfg__=dump_configs(cfg=self.cfg_orig, pc=self.pc),
+        np.savez(path, __cfg__=dump_configs(cfg=self.cfg, pc=self.pc),
                  **arrs)
 
     @classmethod
@@ -267,7 +71,6 @@ class ConvPoolOp:
         data = np.load(path, allow_pickle=False)
         cfgs = load_configs(data["__cfg__"], cfg=ConvConfig, pc=PoolConfig)
         op = cls.__new__(cls)
-        op.cfg_orig, op.pc = cfgs["cfg"], cfgs["pc"]
-        op.cfg = _kernel_cfg(op.cfg_orig)
+        op.cfg, op.pc = cfgs["cfg"], cfgs["pc"]
         op._cache = OperandCache([data[k] for k in cls._OPERAND_KEYS])
         return op

@@ -1,12 +1,13 @@
-"""Layout transforms: TPU weight packing and activation prep.
+"""Layout transforms: weight packing and activation prep.
 
 Reference parity: the ``OIhw4i16o4i`` weight pre-pack that lets x86 load
 4 input channels x 16 output channels as one zmm for ``vpdpbusd``
-(``src/jit_conv_kernel.cc:512-564``). The TPU MXU wants a plain 2-D int8
-matmul operand, so the pack here is: OIHW -> (KH*KW*ICP, OCP) with channels
-zero-padded to hardware-friendly multiples.
+(``src/jit_conv_kernel.cc:512-564``). The int8 tensor-core products take a
+plain 2-D int8 operand, so the pack here is: OIHW -> (KH*KW*ICP, OCP) with
+channels zero-padded to multiples of 32 (config.CHANNEL_ALIGN).
 
-u8 activation handling: the MXU int8 path is s8 x s8, so u8 activations are
+u8 activation handling: int8 tensor-core products are s8 x s8, so u8
+activations are
 shifted to s8 (x - 128) and the exact correction term
 ``128 * sum_{taps,ic} w`` is folded in as a per-oc int32 vector:
 
@@ -30,10 +31,9 @@ from ..types import dtype
 def pack_conv_weights(wei_oihw: np.ndarray, icp: int, ocp: int) -> np.ndarray:
     """OIHW s8 -> (KW*KH*ICP, OCP) s8, zero-padded channels.
 
-    The row order is (kw, kh, ic): the Pallas kernel builds its im2col
-    patch by lane-concatenating the KH row-aligned blocks (rows ordered
-    (kh, ic)) and runs one K=KH*ICP matmul per kw tap, so each kw tap's
-    weight sub-matrix w3[kj*KH*ICP:(kj+1)*KH*ICP] must hold (kh, ic) rows.
+    The row order is (kw, kh, ic): tap (ki, kj) owns the ICP rows starting
+    at (kj*KH + ki)*ICP, the order in which the conv kernel's K loop and
+    the plain XLA twin's im2col patch walk the taps.
     """
     w = np.asarray(wei_oihw)
     oc, ic, kh, kw = w.shape
@@ -77,7 +77,7 @@ def widen_scales(scales, oc: int, ocp: int) -> np.ndarray:
     """Scales broadcast to per-channel f32, padded to ocp (pad value 1.0).
 
     In-kernel the x86 code indexes the scale vector per 16-channel block
-    (``src/jit_conv_kernel.cc:232-233``); a dense per-lane vector is the TPU
+    (``src/jit_conv_kernel.cc:232-233``); a dense per-channel vector is the
     equivalent and is bit-identical under f32 multiply.
     """
     sc = np.asarray(scales, dtype=np.float32).reshape(-1)
@@ -89,11 +89,10 @@ def widen_scales(scales, oc: int, ocp: int) -> np.ndarray:
 def prep_src(cfg: ConvConfig, src_u8, xp=np):
     """Activation prep: NHWC u8 -> spatially padded, channel-padded,
     shifted-to-s8 tensor of shape (N, IHP, IWP8, ICP), where IWP8 rounds
-    the padded width up to a multiple of 8 so the Pallas kernel's flat
-    row offsets are provably sublane-aligned.
+    the padded width up to a multiple of 8 (the flat layout of
+    ops/conv.py).
 
-    Works with numpy (host) or jax.numpy (traced, fuses into the kernel's
-    producer). Channel-pad and width-pad slots hold -128 after the shift,
+    Works with numpy (host) or jax.numpy (traced, one fused XLA pass). Channel-pad and width-pad slots hold -128 after the shift,
     matching the spatial padding, so the single constant correction term
     stays exact (their weights are zero) and the extra columns only feed
     discarded out-of-row outputs.
@@ -110,27 +109,24 @@ def prep_src(cfg: ConvConfig, src_u8, xp=np):
 
 
 # --------------------------------------------------------------- strided
-# Space-to-depth lowering: a stride-(sh,sw) conv is exactly a stride-1 conv
-# over the (sh*sw*ic)-channel s2d grid with remapped weights. Original tap
-# (ki,kj) reading input row oi*sh+ki lands at s2d tap (ki//sh, kj//sw) in
-# lane group (ki%sh)*sw + (kj%sw); s2d slots with no original tap get zero
-# weights, so the MXU result is bit-identical (the u8-shift correction only
-# sums weight columns, and zero rows contribute nothing). This replaces the
-# round-1 pure-XLA fallback: strided shapes now run the flagship Pallas
-# kernel (reference handles stride in-kernel, src/jit_conv_kernel.cc:512-673).
+# Space-to-depth lowering (the packed domain's strided convs): a
+# stride-(sh,sw) conv is exactly a stride-1 conv over the (sh*sw*ic)-channel
+# s2d grid with remapped weights. Original tap (ki,kj) reading input row
+# oi*sh+ki lands at s2d tap (ki//sh, kj//sw) in channel group
+# (ki%sh)*sw + (kj%sw); s2d slots with no original tap get zero weights, so
+# the result is bit-identical (the u8-shift correction only sums weight
+# columns, and zero rows contribute nothing).
 
 
 def _s2d_regroup(x, ih2: int, iw2: int, sh: int, sw: int, ic: int, xp):
-    """(N, ih2*sh, iw2*sw, IC) -> (N, ih2, iw2, sh*sw*IC) with lane group
+    """(N, ih2*sh, iw2*sw, IC) -> (N, ih2, iw2, sh*sw*IC) with channel group
     g = (row%sh)*sw + (col%sw), i.e. channel index g*ic + c.
 
     Equivalent to reshape(n,ih2,sh,iw2,sw,ic) + transpose(0,1,3,2,4,5),
     but expressed as sh strided ROW slices + a pure reshape + one channel
     concat: the W-direction regroup is a no-op relayout (cols are already
     contiguous as (iw2, sw*ic)), so the only data movement XLA sees is
-    row-strided copies of full rows. The 6-D transpose form puts the tiny
-    ic (3 for a ResNet stem) innermost and lowers to a scalar-ish gather
-    on TPU; this form keeps every copy lane-contiguous."""
+    row-strided copies of full rows, each contiguous in memory."""
     n = x.shape[0]
     slabs = [x[:, a::sh].reshape(n, ih2, iw2, sw * ic) for a in range(sh)]
     return slabs[0] if sh == 1 else xp.concatenate(slabs, axis=-1)
@@ -177,36 +173,10 @@ def s2d_weights(cfg: ConvConfig, wei_oihw: np.ndarray) -> np.ndarray:
     return out
 
 
-def prep_src_s2d(cfg: ConvConfig, cfg2: ConvConfig, src_u8, xp=np):
-    """Activation prep for the s2d path: NHWC u8 -> the flat stride-1 input
-    ``prep_src(cfg2, ...)`` would produce, i.e. (N, IH2, IWP8, ICP2)
-    shifted-s8. Spatial conv padding, the s2d regroup, lane padding and the
-    -128 shift all happen here (XLA, fused under the op's jit)."""
-    from ..utils.mathutil import round_up
-
-    src = xp.asarray(src_u8)
-    n, ih, iw, ic = src.shape
-    sh, sw = cfg.sh, cfg.sw
-    hp, wp = cfg2.ih * sh, cfg2.iw * sw
-    # rows/cols of the conceptually padded image actually read: [0, hp/wp).
-    # Crop input rows the stride never touches, pad the rest with u8 zeros.
-    take_h = min(ih, hp - cfg.ph)
-    take_w = min(iw, wp - cfg.pw)
-    x = src[:, :take_h, :take_w, :]
-    x = xp.pad(x, ((0, 0), (cfg.ph, hp - cfg.ph - take_h),
-                   (cfg.pw, wp - cfg.pw - take_w), (0, 0)))
-    x = _s2d_regroup(x, cfg2.ih, cfg2.iw, sh, sw, ic, xp)
-    iwp8 = round_up(cfg2.iw, 8)
-    x = xp.pad(x, ((0, 0), (0, 0), (0, iwp8 - cfg2.iw),
-                   (0, cfg2.icp - sh * sw * ic)))
-    return (x.astype(xp.int16) - 128).astype(xp.int8)
-
-
 def s2d_image_u8(cfg: ConvConfig, src_u8, xp=np):
     """NHWC u8 -> the s2d-grid NHWC u8 image of the strided conv `cfg`
-    (conv padding baked in as u8 zeros; no lane/width padding, no -128
-    shift) — the packed path's boundary-side twin of ``prep_src_s2d``.
-    ``pack_image(s2d_image_u8(src, cfg), spec)`` yields the packed s2d
+    (conv padding baked in as u8 zeros; no channel/width padding, no -128
+    shift). ``pack_image(s2d_image_u8(src, cfg), spec)`` yields the packed s2d
     input for a strided ``PackedConvOp``."""
     cfg2 = s2d_cfg(cfg)
     src = xp.asarray(src_u8)
@@ -247,39 +217,3 @@ def pack_all(cfg: ConvConfig, wei, bias=None, wei1x1=None, bias1x1=None
             "scale1": widen_scales(cfg.conv1_scales, cfg.oc1x1, cfg.oc1x1p),
         })
     return out
-
-
-def pack_sparse_s2d_weights(wei_oihw: np.ndarray, ocp: int) -> np.ndarray:
-    """OIHW s8 weights of a STRIDED conv -> (KH*KW*IC, OCP) rows ordered
-    (kh, kw, ic), for the sparse-phase s2d tap formulation.
-
-    The dense s2d lowering spreads a kh x kw kernel over
-    ceil(k/s)^2 taps x s^2 phase groups — for 3x3/s2 that is 16
-    tap-phase slots of which only 9 hold nonzero weights, a 16/9
-    logical-MAC inflation the MXU pays in full. The sparse formulation
-    enumerates only the ORIGINAL taps: each (ki, kj) maps to s2d row
-    block qi = ki // sh, column shift qj = kj // sw, and phase lane
-    window g = (ki % sh) * sw + kj % sw; the kernel lane-slices the
-    packed s2d image per tap (requires ic % 128 == 0 so slices are
-    lane-aligned) and the weight matrix carries exactly kh*kw*ic rows.
-    """
-    w = np.asarray(wei_oihw)
-    oc, ic, kh, kw = w.shape
-    out = np.zeros((kh, kw, ic, ocp), dtype=np.int8)
-    out[..., :oc] = np.transpose(w, (2, 3, 1, 0))
-    return out.reshape(kh * kw * ic, ocp)
-
-
-def sparse_s2d_taps(cfg_orig) -> tuple:
-    """The sparse-phase tap descriptor for a strided config: a tuple of
-    (qi, lane_lo, lane_hi, qj) per original tap, in (kh, kw) row-major
-    order (matching pack_sparse_s2d_weights rows)."""
-    o = cfg_orig
-    taps = []
-    for ki in range(o.kh):
-        qi, a = divmod(ki, o.sh)
-        for kj in range(o.kw):
-            qj, b = divmod(kj, o.sw)
-            g = a * o.sw + b
-            taps.append((qi, g * o.ic, (g + 1) * o.ic, qj))
-    return tuple(taps)

@@ -1,743 +1,138 @@
-"""Two-layer packed megakernel: a chain of TWO fused convs in ONE program.
+"""Two chained packed convs as one op (``PackedConvPairOp``).
 
-The packed domain (ops/packed.py) already removes the inter-op layout
-glue; what remains per conv is one HBM read of the packed input and one
-HBM write of the packed output. One Pallas program computes
-
-    packed in --conv_a(3x3[+1x1])--> VMEM intermediate
-              --conv_b(3x3[+1x1])--> packed out
-
-so two convs share one read + one write — bytes per conv halve. This is
-the reference's register-residency invariant applied one level up: its
-fused 3x3->1x1 keeps the intermediate in zmm registers
-(``src/jit_conv_kernel.cc:275-277``); here the whole *layer boundary*
-stays in VMEM.
-
-Perf status (round 5, docs/PERF.md): the pair is the best
-PRODUCER->CONSUMER chain configuration — each layer reading the buffer
-the previous one just wrote costs a measured ~10pp HBM write->read-back
-turnaround, which byte-halving partially amortizes (pair-carry 81-83%
-of roofline vs single-carry 79%). Under the reference's re-submit
-protocol (stable input buffers) the turnaround vanishes and the single
-op wins (87-90% vs 85-86%), so the megakernel is the model-chain
-option (``bench.py --pair``), not the bench default.
-
-Geometry (the interesting part). The grid covers the output's padded row
-space in tiles of T rows, like ops/packed.py. For output tile rows
-[tT, tT+T) layer b needs intermediate virtual rows
-
-    [s2, s2 + T + kh_b - 1),   s2 = tT + (halo_mid - halo_out) - ph_b
-
-— kh_b - 1 extra rows per tile, recomputed by layer a (the classic
-overlapped-tiling trade: (kh_b-1)/T extra MXU rows, 3% at T=64, buys a
-2x cut in HBM traffic). The intermediate is *virtual*: it exists only as
-a (T + kh_b - 1) * iwp row tile in VMEM, and its window is deliberately
-NOT clamped — virtual rows outside the intermediate's own row space are
-simply masked to -128 (u8 zero = conv padding) by the layer-a epilogue
-mask, exactly like any other pad row, so layer b never needs boundary
-rolls at all. Only layer a's *input* window is clamped to the real
-packed array and un-shifted with the static-roll trick of
-ops/packed.py; the garbage rows a wrap introduces land in intermediate
-rows the mask forces to -128 (validate_packed_pair proves this
-statically for the given specs).
-
-Reference scope note: the reference has no two-op fusion across its op
-boundary — this is TPU-roofline-driven design, validated bit-exact
-against the composition of two PackedConvOps (themselves oracle-tested
-against the reference semantics, ops/ref.py).
+The pair is the composition of two ``PackedConvOp``s: layer a writes the
+packed intermediate ``smid`` (halo ``halo_mid``), layer b reads it, and an
+optional 2x2/s2 max pool follows. VGGFusion's conv-conv-pool blocks and
+``parallel/plan.py``'s third stage use it; ``parallel/shard.py`` shards it
+layer by layer.
 """
 from __future__ import annotations
 
-import dataclasses
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..config import ConvConfig
-from ..types import dtype
-from ..utils import env
 from ..utils.logger import check
-from ..utils.opcache import OperandCache
-from .packed import (PackedSpec, _narrow_cfg, _roll_boundary,
-                     _shifted_patch, pack_image)
-from .requant import requant_to_u8_centered
-
-
-def _pair_offs(cfg_a: ConvConfig, cfg_b: ConvConfig, sin: PackedSpec,
-               smid: PackedSpec, sout: PackedSpec, T: int):
-    """Static clamp offsets of layer a's input window at the extreme
-    tiles, plus the window starts at t=0 / t=nt-1 (for validation)."""
-    nt = sout.rows // T
-    T2 = T + cfg_b.kh - 1
-    L1 = T2 + cfg_a.kh - 1
-    delta2 = smid.halo - sout.halo
-    delta1 = sin.halo - smid.halo
-
-    def s2u(t):
-        return t * T + delta2 - cfg_b.ph
-
-    def s1u(t):
-        return s2u(t) + delta1 - cfg_a.ph
-
-    off_top = max(0, -s1u(0))
-    off_bot = max(0, s1u(nt - 1) - (sin.rows - L1))
-    return off_top, off_bot, s2u, s1u, T2, L1
-
-
-def validate_packed_pair(cfg_a: ConvConfig, cfg_b: ConvConfig,
-                         sin: PackedSpec, smid: PackedSpec,
-                         sout: PackedSpec):
-    """Legality of running cfg_a then cfg_b in one program (init_conf-style
-    fail-fast checks, util/log.h:50-65 contract)."""
-    for cfg, name in ((cfg_a, "cfg_a"), (cfg_b, "cfg_b")):
-        check(cfg.sh == 1 and cfg.sw == 1,
-              f"megakernel requires stride 1 ({name})")
-        check(cfg.dst_dt == dtype.u8,
-              f"megakernel requires u8 destinations ({name})")
-        check(not cfg.with_sum,
-              f"megakernel does not take sum post-ops ({name})")
-    # chain compatibility: a's output image is b's input image
-    out_c_a = cfg_a.oc1x1 if cfg_a.fuse_conv1x1 else cfg_a.oc
-    ocp_a = cfg_a.oc1x1p if cfg_a.fuse_conv1x1 else cfg_a.ocp
-    check((cfg_a.oh, cfg_a.ow) == (cfg_b.ih, cfg_b.iw),
-          "layer-a output image must be layer-b input image")
-    check(out_c_a == cfg_b.ic and ocp_a == cfg_b.icp,
-          "layer-a output channels must match layer-b input channels")
-    # spec geometry
-    check((sin.h, sin.w, sin.c, sin.cp)
-          == (cfg_a.ih, cfg_a.iw, cfg_a.ic, cfg_a.icp),
-          "input spec does not match cfg_a")
-    check((smid.h, smid.w, smid.c, smid.cp)
-          == (cfg_a.oh, cfg_a.ow, out_c_a, ocp_a),
-          "intermediate spec does not match cfg_a output")
-    out_c_b = cfg_b.oc1x1 if cfg_b.fuse_conv1x1 else cfg_b.oc
-    ocp_b = cfg_b.oc1x1p if cfg_b.fuse_conv1x1 else cfg_b.ocp
-    check((sout.h, sout.w, sout.c, sout.cp)
-          == (cfg_b.oh, cfg_b.ow, out_c_b, ocp_b),
-          "output spec does not match cfg_b output")
-    check(sin.iwp == smid.iwp == sout.iwp,
-          "megakernel needs one flat row stride across all three specs")
-    # column geometry: taps must fit margins; byte-shift needs |d| < 4
-    for cfg, si, so, name in ((cfg_a, sin, smid, "a"), (cfg_b, smid, sout,
-                                                        "b")):
-        check(si.col_off >= cfg.pw,
-              f"layer-{name} input col_off too small for kernel width")
-        check(si.iwp - si.col_off - si.w >= cfg.kw - 1 - cfg.pw,
-              f"layer-{name} input right margin too small")
-        ds = [si.col_off - so.col_off + kj - cfg.pw for kj in range(cfg.kw)]
-        check(all(abs(d) < 4 for d in ds),
-              f"layer-{name} column taps exceed the byte-shift range")
-    check(sin.halo >= cfg_a.ph, "input halo too small for layer a")
-    T = cfg_b.row_tile
-    check(sout.rows % T == 0, "row_tile must divide padded output rows")
-    off_top, off_bot, s2u, s1u, T2, L1 = _pair_offs(
-        cfg_a, cfg_b, sin, smid, sout, T)
-    nt = sout.rows // T
-    check(sin.rows >= L1, "input too short for one megakernel window")
-    # the static roll fires only at the extreme tiles, so the window
-    # clamp must not engage anywhere else: s1u(1) = T - off_top and
-    # s1u(nt-2) = s1max - off_bot must already be in bounds
-    check(off_top <= T and off_bot <= T,
-          "row_tile smaller than boundary overlap")
-    if off_top or off_bot:
-        check(nt >= 2, "boundary rolls need at least two row tiles")
-    # the roll's garbage rows must land in intermediate rows the layer-a
-    # mask forces to -128 (pad rows of smid's coordinate frame)
-    if off_top:
-        check(s2u(0) + off_top <= smid.halo,
-              "top boundary garbage would reach intermediate image rows "
-              "(raise input halo or intermediate halo)")
-    if off_bot:
-        check(s2u(nt - 1) + T2 - off_bot >= smid.halo + smid.h,
-              "bottom boundary garbage would reach intermediate image rows")
-
-
-def _epilogue_u8(cfg: ConvConfig, acc, operands, mask, pool_fn=None):
-    """Layer epilogue: requant (+ fused 1x1) to centered u8, mask applied
-    at the FINAL stage so the result is a valid packed image tile.
-    pool_fn (layer b only): fused 2x2/s2 max pool on the clamped f32
-    u8-domain values before the byte pack (ops/packed.py pool2)."""
-    if cfg.fuse_conv1x1:
-        (w1, corr1, bias1, scale1) = operands[4:8]
-        x1 = requant_to_u8_centered(
-            acc, operands[2][...] if cfg.conv0_with_bias else None,
-            operands[3][...], cfg.conv0_round)
-        acc1 = jnp.dot(x1, w1[...], preferred_element_type=jnp.int32)
-        acc1 = acc1 + corr1[...]
-        return requant_to_u8_centered(
-            acc1, bias1[...] if cfg.conv1_with_bias else None,
-            scale1[...], cfg.conv1_round, zero_mask=mask, pool_fn=pool_fn)
-    return requant_to_u8_centered(
-        acc, operands[2][...] if cfg.conv0_with_bias else None,
-        operands[3][...], cfg.conv0_round, zero_mask=mask, pool_fn=pool_fn)
-
-
-def _tap_dot(patch, cfg: ConvConfig, si: PackedSpec, so: PackedSpec,
-             w3_ref, corr_ref, interp: bool):
-    """kw taps as input-side byte shifts, lane-concatenated into one dot
-    (the bshift1 formulation of ops/packed.py)."""
-    ds = [si.col_off - so.col_off + kj - cfg.pw for kj in range(cfg.kw)]
-    taps = [_shifted_patch(patch, d, interp) for d in ds]
-    wide = taps[0] if cfg.kw == 1 else jnp.concatenate(taps, axis=-1)
-    acc = jnp.dot(wide, w3_ref[...], preferred_element_type=jnp.int32)
-    return acc + corr_ref[...]
-
-
-def _tap_dot_split(blocks, cfg: ConvConfig, si: PackedSpec, so: PackedSpec,
-                   w3_ref, corr_ref, interp: bool):
-    """kh-split formulation: one (m, kw*icp) dot per kh row block,
-    s32 partials summed. Same MACs as _tap_dot but the live tap buffer
-    is kh-times smaller, trading the single-dot's ~0.5pp MXU edge for
-    the VMEM headroom that keeps big tiles double-buffered (the T=64
-    cliff, see PackedConvPairOp budget note). Expects blocks in kh
-    order and w3 packed KH-MAJOR ((kh, kw, icp) rows,
-    _pack_weights_khmajor)."""
-    ds = [si.col_off - so.col_off + kj - cfg.pw for kj in range(cfg.kw)]
-    ksub = cfg.kw * cfg.icp
-    acc = None
-    for ki, block in enumerate(blocks):
-        taps = [_shifted_patch(block, d, interp) for d in ds]
-        wide = taps[0] if cfg.kw == 1 else jnp.concatenate(taps, axis=-1)
-        part = jnp.dot(wide, w3_ref[ki * ksub:(ki + 1) * ksub, :],
-                       preferred_element_type=jnp.int32)
-        acc = part if acc is None else acc + part
-    return acc + corr_ref[...]
-
-
-def _pack_weights_khmajor(wei_oihw, icp: int, ocp: int):
-    """OIHW s8 -> (KH*KW*ICP, OCP) with KH-major rows, for the kh-split
-    dot (layout.pack_conv_weights is kw-major for the single-dot path)."""
-    w = np.asarray(wei_oihw)
-    oc, ic, kh, kw = w.shape
-    out = np.zeros((kh, kw, icp, ocp), dtype=np.int8)
-    out[:, :, :ic, :oc] = np.transpose(w, (2, 3, 1, 0))
-    return out.reshape(kh * kw * icp, ocp)
-
-
-def _image_mask(m, iwp, row0, spec: PackedSpec, row_bounds=None):
-    """(m, 1) f32 0/1 mask of slots inside spec's image region, for a
-    tile whose first flat row is virtual row `row0` (may be traced).
-    row_bounds overrides the [halo, halo+h) image-row interval with
-    traced per-shard bounds (sp_packed's interior-widened mask)."""
-    pos = jax.lax.broadcasted_iota(jnp.int32, (m, 1), 0)
-    col = pos % iwp
-    row = row0 + pos // iwp
-    row_lo, row_hi = ((spec.halo, spec.halo + spec.h)
-                      if row_bounds is None else row_bounds)
-    return (jnp.logical_and(
-        jnp.logical_and(col >= spec.col_off, col < spec.col_off + spec.w),
-        jnp.logical_and(row >= row_lo, row < row_hi))
-        ).astype(jnp.float32)
-
-
-def _pair_kernel(src_ref, *refs, cfg_a: ConvConfig, cfg_b: ConvConfig,
-                 sin: PackedSpec, smid: PackedSpec, sout: PackedSpec,
-                 split_kh: bool = False, pool2: bool = False,
-                 t_dim: int = 1, msplit: int = 1, t_off: int = 0,
-                 nt_tot: int = None, row0_off: int = 0,
-                 offs: tuple = None, dyn_mid: bool = False,
-                 reuse_mid: bool = False):
-    na = 8 if cfg_a.fuse_conv1x1 else 4
-    ops_a, refs = refs[:na], refs[na:]
-    nb = 8 if cfg_b.fuse_conv1x1 else 4
-    ops_b, refs = refs[:nb], refs[nb:]
-    mb_ref = None
-    if dyn_mid:
-        # (1, 2) SMEM scalars: the intermediate image-row bounds in the
-        # smid row frame. sp_packed widens them by ph_b on shard-interior
-        # sides so layer b reads computed neighbor rows instead of the
-        # -128 padding the static mask would force (parallel/shard.py)
-        mb_ref, refs = refs[0], refs[1:]
-    out_ref, inter_ref = refs[0], refs[1]
-    T = cfg_b.row_tile
-    iwp = sin.iwp
-    # t_off/nt_tot/row0_off: tile-range + input-slice re-basing for the
-    # sp_packed interior/boundary split (parallel/shard.py); tile index,
-    # masks and boundary rolls use the ABSOLUTE tile index, the input
-    # window re-bases by the slice start
-    t = t_off + pl.program_id(t_dim)
-    nt = nt_tot if nt_tot is not None else pl.num_programs(t_dim)
-    interp = env.interpret_kernels()
-    off_top, off_bot, s2u_f, s1u_f, T2, L1 = _pair_offs(
-        cfg_a, cfg_b, sin, smid, sout, T)
-    if offs is not None:
-        # sliced calls: sin describes the SLICE, whose rows would skew
-        # the off_bot derivation — the caller passes the full-array offs
-        off_top, off_bot = offs
-    m, m2 = T * iwp, T2 * iwp
-    delta2 = smid.halo - sout.halo
-    delta1 = sin.halo - smid.halo
-    s2u = t * T + delta2 - cfg_b.ph          # virtual, never clamped
-    s1 = s2u + delta1 - cfg_a.ph - row0_off
-    if off_top or off_bot:
-        s1 = jnp.clip(s1, 0, sin.rows - L1)
-    bounds = None if mb_ref is None else (mb_ref[0, 0], mb_ref[0, 1])
-
-    def compute_a(row_lo, nrows):
-        """Layer a for intermediate rows [s2u + row_lo, + nrows)."""
-        mm = nrows * iwp
-        blocks = []
-        for ki in range(cfg_a.kh):
-            base = pl.multiple_of((s1 + row_lo + ki) * iwp, 8)
-            blocks.append(src_ref[0, pl.ds(base, mm), :])
-        if split_kh:
-            blocks = [_roll_boundary(b, t, nt, off_top, off_bot, iwp,
-                                     interp) for b in blocks]
-            acc = _tap_dot_split(blocks, cfg_a, sin, smid, ops_a[0],
-                                 ops_a[1], interp)
-        else:
-            patch = jnp.concatenate(blocks, axis=-1)  # (mm, kh_a*icp_a)
-            patch = _roll_boundary(patch, t, nt, off_top, off_bot, iwp,
-                                   interp)
-            acc = _tap_dot(patch, cfg_a, sin, smid, ops_a[0], ops_a[1],
-                           interp)
-        mask = _image_mask(mm, iwp, s2u + row_lo, smid, row_bounds=bounds)
-        return _epilogue_u8(cfg_a, acc, ops_a, mask)
-
-    # land the intermediate in a VMEM scratch ref: slicing layer b's
-    # row blocks out of a REF gives Mosaic the same load-fusion as the
-    # kernel inputs get, where slicing the traced VALUE materialized a
-    # copy per block/tap (measured 72.4% vs 79.7% single-op — slower
-    # than not fusing at all)
-    if not reuse_mid:
-        inter_ref[...] = compute_a(0, T2)
-    else:
-        # cross-tile reuse: the scratch persists across grid steps (the
-        # t dim is declared "arbitrary", i.e. sequential), and tile t's
-        # first kh_b - 1 intermediate rows are exactly tile t-1's last
-        # ones — carry them instead of recomputing (the megakernel's
-        # (kh_b-1)/T recompute term, docs/PERF.md; requires roll-free
-        # erosion geometry and bt grid order, validated by the op)
-        kb = cfg_b.kh - 1
-
-        @pl.when(t == 0)
-        def _():
-            inter_ref[...] = compute_a(0, T2)
-
-        @pl.when(t > 0)
-        def _():
-            inter_ref[pl.ds(0, kb * iwp), :] = \
-                inter_ref[pl.ds(T * iwp, kb * iwp), :]
-            inter_ref[pl.ds(kb * iwp, m), :] = compute_a(kb, T)
-
-    # layer b consumes the VMEM-resident intermediate tile directly:
-    # its window start IS s2u, so no clamp and no roll. msplit > 1 runs
-    # layer b in row CHUNKS: chunk ci+1's MXU dot is data-independent of
-    # chunk ci's VPU requant epilogue, so Mosaic can overlap the two
-    # units instead of serializing dot -> epilogue on the whole tile
-    # (the "re-exposed VPU epilogue" term of docs/PERF.md).
-    Tc = T // msplit
-    mc = Tc * iwp
-    for ci in range(msplit):
-        r0 = ci * Tc
-        blocks_b = [inter_ref[pl.ds((r0 + ki) * iwp, mc), :]
-                    for ki in range(cfg_b.kh)]
-        if split_kh:
-            acc_b = _tap_dot_split(blocks_b, cfg_b, smid, sout, ops_b[0],
-                                   ops_b[1], interp)
-        else:
-            patch_b = jnp.concatenate(blocks_b, axis=-1)  # (mc, kh_b*icp_b)
-            acc_b = _tap_dot(patch_b, cfg_b, smid, sout, ops_b[0],
-                             ops_b[1], interp)
-        mask_out = _image_mask(mc, iwp, t * T + r0, sout)
-        pool_fn = None
-        if pool2:
-            T2p, iw2 = Tc // 2, iwp // 2
-
-            def pool_fn(xf):
-                x4 = xf.reshape(T2p, 2, iw2, 2, xf.shape[-1])
-                p = jnp.maximum(jnp.maximum(x4[:, 0, :, 0], x4[:, 0, :, 1]),
-                                jnp.maximum(x4[:, 1, :, 0], x4[:, 1, :, 1]))
-                return p.reshape(T2p * iw2, xf.shape[-1])
-
-        val = _epilogue_u8(cfg_b, acc_b, ops_b, mask_out, pool_fn=pool_fn)
-        if msplit == 1:
-            out_ref[0] = val
-        elif pool2:
-            out_ref[0, pl.ds(r0 * iwp // 4, mc // 4), :] = val
-        else:
-            out_ref[0, pl.ds(r0 * iwp, mc), :] = val
-
-
-@functools.partial(jax.jit, static_argnames=("cfg_a", "cfg_b", "sin",
-                                             "smid", "sout", "split_kh",
-                                             "pool2", "grid_order",
-                                             "msplit", "t_range",
-                                             "nt_tot", "row0_off",
-                                             "offs", "reuse_mid"))
-def _pair_call(cfg_a: ConvConfig, cfg_b: ConvConfig, sin: PackedSpec,
-               smid: PackedSpec, sout: PackedSpec, arr, *operands,
-               split_kh: bool = False, pool2: bool = False,
-               grid_order: str = "bt", msplit: int = 1,
-               t_range: tuple = None, nt_tot: int = None,
-               row0_off: int = 0, offs: tuple = None, mid_bounds=None,
-               reuse_mid: bool = False):
-    """t_range/nt_tot/row0_off/offs: tile-range + input-slice re-basing
-    for sp_packed's interior/boundary split (see _packed_call).
-    mid_bounds: traced (1, 2) i32 intermediate image-row bounds (the
-    per-shard widened mask of sp_packed)."""
-    n = arr.shape[0]
-    T = cfg_b.row_tile
-    iwp = sin.iwp
-    T2 = T + cfg_b.kh - 1
-    m, m2 = T * iwp, T2 * iwp
-    ocp_out = cfg_b.oc1x1p if cfg_b.fuse_conv1x1 else cfg_b.ocp
-    t0, t1 = t_range if t_range is not None else (0, sout.rows // T)
-    nt = t1 - t0
-    # grid_order: "bt" iterates row tiles fastest within a batch image
-    # (input block resident for nt steps); "tb" iterates batch fastest
-    # (uniform streaming, nt-times-deeper pipeline per input block) —
-    # measured equivalent at T=32 and probed at T>=64
-    # (scratch/pair_probe.py)
-    if grid_order == "bt":
-        grid = (n, nt)
-        t_dim = 1
-
-        def bt(b, t):
-            return b, t
-    else:
-        grid = (nt, n)
-        t_dim = 0
-
-        def bt(t, b):
-            return b, t
-
-    def vec(nlanes):
-        return pl.BlockSpec((1, nlanes), lambda *ij: (0, 0),
-                            memory_space=pltpu.VMEM)
-
-    def layer_specs(cfg):
-        k_dim = cfg.kh * cfg.kw * cfg.icp
-        specs = [pl.BlockSpec((k_dim, cfg.ocp), lambda *ij: (0, 0),
-                              memory_space=pltpu.VMEM),
-                 vec(cfg.ocp), vec(cfg.ocp), vec(cfg.ocp)]
-        if cfg.fuse_conv1x1:
-            specs += [pl.BlockSpec((cfg.ocp, cfg.oc1x1p),
-                                   lambda *ij: (0, 0),
-                                   memory_space=pltpu.VMEM),
-                      vec(cfg.oc1x1p), vec(cfg.oc1x1p), vec(cfg.oc1x1p)]
-        return specs
-
-    in_specs = [pl.BlockSpec((1, sin.rows * iwp, sin.cp),
-                             lambda *ij: (bt(*ij)[0], 0, 0),
-                             memory_space=pltpu.VMEM)]
-    in_specs += layer_specs(cfg_a) + layer_specs(cfg_b)
-    extra_args = ()
-    if mid_bounds is not None:
-        in_specs = in_specs + [pl.BlockSpec((1, 2), lambda *ij: (0, 0),
-                                            memory_space=pltpu.SMEM)]
-        extra_args = (jnp.asarray(mid_bounds, jnp.int32).reshape(1, 2),)
-    out_spec = pl.BlockSpec((1, m, ocp_out),
-                            lambda *ij: bt(*ij) + (0,),
-                            memory_space=pltpu.VMEM)
-    ocp_mid = cfg_a.oc1x1p if cfg_a.fuse_conv1x1 else cfg_a.ocp
-    scratch = [pltpu.VMEM((m2, ocp_mid), jnp.int8)]
-
-    if pool2:
-        m_out = (T // 2) * (iwp // 2)
-        out_spec = pl.BlockSpec((1, m_out, ocp_out),
-                                lambda *ij: bt(*ij) + (0,),
-                                memory_space=pltpu.VMEM)
-    else:
-        m_out = m
-    out_shape = (n, (t1 - t0) * m_out, ocp_out)
-
-    def layer_flops(cfg, rows):
-        f = 2 * rows * cfg.kh * cfg.kw * cfg.icp * cfg.ocp
-        if cfg.fuse_conv1x1:
-            f += 2 * rows * cfg.ocp * cfg.oc1x1p
-        return f
-
-    flops = layer_flops(cfg_a, m2) + layer_flops(cfg_b, m)
-    nbytes = (sin.rows * iwp * sin.cp // max(nt, 1) + m_out * ocp_out)
-    operands = [op.reshape(1, -1) if op.ndim == 1 else op
-                for op in operands]
-    return pl.pallas_call(
-        functools.partial(_pair_kernel, cfg_a=cfg_a, cfg_b=cfg_b,
-                          sin=sin, smid=smid, sout=sout,
-                          split_kh=split_kh, pool2=pool2, t_dim=t_dim,
-                          msplit=msplit, t_off=t0, nt_tot=nt_tot,
-                          row0_off=row0_off, offs=offs,
-                          dyn_mid=mid_bounds is not None,
-                          reuse_mid=reuse_mid),
-        out_shape=jax.ShapeDtypeStruct(out_shape, jnp.int8),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_spec,
-        scratch_shapes=scratch,
-        # cross-tile scratch reuse makes the t dim sequential
-        compiler_params=env.tpu_compiler_params(
-            ("parallel", "arbitrary") if reuse_mid
-            else ("parallel", "parallel")),
-        cost_estimate=pl.CostEstimate(
-            flops=flops * grid[0] * grid[1],
-            bytes_accessed=nbytes * grid[0] * grid[1],
-            transcendentals=0),
-        interpret=env.interpret_kernels(),
-    )(jnp.asarray(arr), *operands, *extra_args)
-
-
-def _msplit_ok(d: int, msplit: int, pool2: bool) -> bool:
-    """Row tile d is chunkable into msplit pieces (even pieces when the
-    pool2 epilogue pools 2x2 windows inside each chunk)."""
-    return d % msplit == 0 and (msplit == 1 or not pool2
-                                or (d // msplit) % 2 == 0)
-
-
-def _pair_row_tile_cands(cfg_a: ConvConfig, cfg_b: ConvConfig,
-                         sin: PackedSpec, smid: PackedSpec,
-                         sout: PackedSpec, split_kh: bool, pool2: bool,
-                         vmem_budget: int = None):
-    """Legal row tiles, ascending: divide padded output rows, M <= 8192,
-    two wide tap patches within the VMEM budget (measured cliff: T=64's
-    38 MB ran 71.8%-of-roofline vs T=32's 81.3 with equal-halo rolls,
-    scratch/mega_probe.py), >= 2 tiles when boundary rolls engage."""
-    kda = cfg_a.kw * cfg_a.icp * (1 if split_kh else cfg_a.kh)
-    kdb = cfg_b.kw * cfg_b.icp * (1 if split_kh else cfg_b.kh)
-    budget = 24 * 2 ** 20 if vmem_budget is None else vmem_budget
-    cands = []
-    for d in range(1, sout.rows + 1):
-        if sout.rows % d or (pool2 and d % 2):
-            continue
-        m, m2 = d * sin.iwp, (d + cfg_b.kh - 1) * sin.iwp
-        if m > 8192 or m2 * kda + m * kdb > budget:
-            continue
-        cfg_b_t = dataclasses.replace(cfg_b, row_tile=d)
-        off_top, off_bot, _, _, T2, L1 = _pair_offs(
-            cfg_a, cfg_b_t, sin, smid, sout, d)
-        if sin.rows < L1 or off_top > d or off_bot > d:
-            continue
-        if (off_top or off_bot) and sout.rows // d < 2:
-            continue
-        cands.append(d)
-    return cands
+from .packed import PackedConvOp, PackedSpec
 
 
 class PackedConvPairOp:
-    """Two chained fused convs in one Pallas program (module docstring).
+    """conv_b(conv_a(x)) in the packed domain, optionally 2x2-max-pooled.
 
     Usage::
 
         pair = PackedConvPairOp(cfg_a, (wa, ba, wa1, ba1),
                                 cfg_b, (wb, bb, wb1, bb1))
         x = pack_image(src_u8, pair.sin)
-        y = pair(x)          # == conv_b(conv_a(x)), one kernel launch
-
-    Bit-identical to running the two ``PackedConvOp``s sequentially with
-    ``halo_out`` chosen as ``pair.smid.halo`` (tests/test_mega.py).
+        y = pair(x)
     """
 
     def __init__(self, cfg_a: ConvConfig, weights_a, cfg_b: ConvConfig,
-                 weights_b, sin: PackedSpec = None,
-                 halo_out: int = None, col_off_out: int = None,
-                 halo_mid: int = None, row_tile: int = None,
-                 split_kh: bool = False, pool2: bool = False,
-                 vmem_budget: int = None, grid_order: str = "bt",
-                 msplit: int = 1, reuse_mid: bool = False):
-        check(grid_order in ("bt", "tb"), "grid_order must be bt or tb")
-        check(msplit >= 1, "msplit must be >= 1")
-        check(not (reuse_mid and grid_order != "bt"),
-              "reuse_mid requires bt grid order (sequential tiles)")
-        from . import layout
-        cfg_a = _narrow_cfg(cfg_a)
-        cfg_b = _narrow_cfg(cfg_b)
-        if sin is None:
-            sin = PackedSpec.make(cfg_a.ih, cfg_a.iw, cfg_a.ic,
-                                  cp=cfg_a.icp, halo=max(cfg_a.ph, 1),
-                                  col_off=max(cfg_a.pw, 1))
-        if halo_out is None:
-            halo_out = sin.halo        # self-chain-friendly default
-        if col_off_out is None:
-            col_off_out = sin.col_off
+                 weights_b, sin: PackedSpec = None, halo_out: int = None,
+                 col_off_out: int = None, halo_mid: int = None,
+                 pool2: bool = False):
+        for cfg, name in ((cfg_a, "cfg_a"), (cfg_b, "cfg_b")):
+            check(cfg.sh == 1 and cfg.sw == 1,
+                  f"conv pair requires stride 1 ({name})")
+            check(not cfg.with_sum,
+                  f"conv pair does not take sum post-ops ({name})")
         if halo_mid is None:
             halo_mid = max(cfg_b.ph, 1)
-        out_c_a = cfg_a.oc1x1 if cfg_a.fuse_conv1x1 else cfg_a.oc
-        ocp_a = cfg_a.oc1x1p if cfg_a.fuse_conv1x1 else cfg_a.ocp
-        smid = PackedSpec(h=cfg_a.oh, w=cfg_a.ow, c=out_c_a, cp=ocp_a,
-                          halo=halo_mid, col_off=sin.col_off, iwp=sin.iwp)
-        out_c_b = cfg_b.oc1x1 if cfg_b.fuse_conv1x1 else cfg_b.oc
-        ocp_b = cfg_b.oc1x1p if cfg_b.fuse_conv1x1 else cfg_b.ocp
-        sout = PackedSpec(h=cfg_b.oh, w=cfg_b.ow, c=out_c_b, cp=ocp_b,
-                          halo=halo_out, col_off=col_off_out, iwp=sin.iwp)
-        # largest legal row tile: divides padded output rows, M <= 8192,
-        # and the two wide tap patches (the dominant VMEM buffers) fit a
-        # 24 MB budget; >= 2 tiles when boundary rolls engage. The budget
-        # is the measured VMEM-pressure cliff: at the flagship shape
-        # T=64 (38 MB of wide patches) ran 71.8% of roofline vs T=32's
-        # 81.3% (scratch/mega_probe.py) — past ~24 MB Mosaic loses the
-        # headroom it needs to double-buffer the streams.
-        # split_kh shrinks the live tap buffer kh-fold (one kh block's
-        # taps at a time, _tap_dot_split)
-        # vmem_budget overrides the measured default for probe ladders
-        # (scratch/pair_probe.py walks tiles past the cliff on purpose)
-        cands = _pair_row_tile_cands(cfg_a, cfg_b, sin, smid, sout,
-                                     split_kh, pool2, vmem_budget)
-        check(bool(cands), "no legal row_tile for megakernel geometry")
-        if row_tile is not None:
-            check(row_tile in cands,
-                  f"row_tile {row_tile} not legal (candidates: {cands})")
-        if pool2 and msplit > 1:
-            check(sin.iwp % 32 == 0,
-                  "pool2 msplit chunk stores need iwp % 32 == 0")
-        if row_tile is None:
-            fit = [d for d in cands if _msplit_ok(d, msplit, pool2)]
-            check(bool(fit), f"no legal row_tile for msplit {msplit}"
-                             f"{' with pool2' if pool2 else ''} "
-                             f"(candidates: {cands})")
-            row_tile = fit[-1]
-        cfg_b = dataclasses.replace(cfg_b, row_tile=row_tile)
-        validate_packed_pair(cfg_a, cfg_b, sin, smid, sout)
-        check(_msplit_ok(cfg_b.row_tile, msplit, pool2),
-              "row_tile incompatible with msplit/pool2 chunking")
-        if pool2:
-            from .packed import validate_packed_maxpool2
-            validate_packed_maxpool2(sout)
-        self.cfg_a, self.cfg_b = cfg_a, cfg_b
-        self.sin, self.smid, self.sout = sin, smid, sout
-        self.split_kh = split_kh
-        self.pool2 = pool2
-        self.grid_order = grid_order
-        self.msplit = msplit
-        self.reuse_mid = reuse_mid
-        if reuse_mid:
-            off_top, off_bot, *_ = _pair_offs(cfg_a, self.cfg_b, sin,
-                                              smid, sout,
-                                              self.cfg_b.row_tile)
-            check(off_top == 0 and off_bot == 0,
-                  "reuse_mid requires roll-free erosion geometry "
-                  "(sin.halo - sout.halo >= ph_a + ph_b)")
-        self._cache = OperandCache(
-            self._pack_layer(cfg_a, weights_a, split_kh)
-            + self._pack_layer(cfg_b, weights_b, split_kh))
+        self.a = PackedConvOp(cfg_a, *self._weights(weights_a), sin=sin,
+                              halo_out=halo_mid,
+                              col_off_out=(sin.col_off if sin is not None
+                                           else None))
+        sin = self.a.sin
+        self.b = PackedConvOp(cfg_b, *self._weights(weights_b),
+                              sin=self.a.sout,
+                              halo_out=sin.halo if halo_out is None
+                              else halo_out,
+                              col_off_out=sin.col_off if col_off_out is None
+                              else col_off_out,
+                              pool2=pool2)
+        self._sync()
 
     @staticmethod
-    def _pack_layer(cfg: ConvConfig, weights, split_kh: bool = False):
-        from . import layout
-        wei, bia, wei1x1, bia1x1 = (tuple(weights) + (None, None))[:4]
-        packed = layout.pack_all(cfg, wei, bia, wei1x1, bia1x1)
-        if split_kh:
-            # kh-major rows for _tap_dot_split (stride-1 only — validated);
-            # the u8-shift correction is a column sum, row-order invariant
-            packed["w3"] = _pack_weights_khmajor(wei, cfg.icp, cfg.ocp)
-        packed["scale0"][cfg.oc:] = 0.0
-        keys = ["w3", "corr0", "bias0", "scale0"]
-        if cfg.fuse_conv1x1:
-            packed["scale1"][cfg.oc1x1:] = 0.0
-            keys += ["w1", "corr1", "bias1", "scale1"]
-        return [packed[k] for k in keys]
+    def _weights(weights):
+        return (tuple(weights) + (None, None, None))[:4]
 
-    @property
-    def _operands(self):
-        return self._cache.host
+    def _sync(self):
+        self.cfg_a, self.cfg_b = self.a.cfg, self.b.cfg
+        self.sin, self.smid, self.sout = self.a.sin, self.a.sout, self.b.sout
+        self.pool2 = self.b.pool2
 
     @property
     def sout_pooled(self) -> PackedSpec:
-        """Output spec of the fused pool2 epilogue (valid when pool2)."""
-        s = self.sout
-        return PackedSpec(h=s.h // 2, w=s.w // 2, c=s.c, cp=s.cp,
-                          halo=s.halo // 2, col_off=s.col_off // 2,
-                          iwp=s.iwp // 2)
+        return self.b.sout_pooled
+
+    @property
+    def _operands(self):
+        return list(self.a._operands) + list(self.b._operands)
 
     def pack_input(self, src_u8, xp=np):
-        if xp is np:
-            from ..native import runtime
-            return runtime.pack_image(np.asarray(src_u8), self.sin)
-        return pack_image(src_u8, self.sin, xp=xp)
+        return self.a.pack_input(src_u8, xp=xp)
 
     def reheight(self, h: int) -> "PackedConvPairOp":
-        """Shallow clone computing an h-row horizontal slab (same W/C
-        geometry, same packed operands) — the per-shard local op of
-        parallel/shard.sp_packed. Requires both layers' oh == ih / ow ==
-        iw (stride-1 SAME geometry) so shard boundaries align."""
+        """Shallow clone computing an h-row horizontal slab (the per-shard
+        op of parallel/shard.sp_packed)."""
         import copy
-        for cfg, name in ((self.cfg_a, "a"), (self.cfg_b, "b")):
-            check(cfg.oh == cfg.ih and cfg.ow == cfg.iw,
-                  f"reheight requires oh == ih on layer {name}")
         clone = copy.copy(self)
-        clone.sin = dataclasses.replace(self.sin, h=h)
-        clone.smid = dataclasses.replace(self.smid, h=h)
-        clone.sout = dataclasses.replace(self.sout, h=h)
-        cfg_a = dataclasses.replace(self.cfg_a, ih=h, oh=h)
-        cfg_b = dataclasses.replace(self.cfg_b, ih=h, oh=h)
-        cands = _pair_row_tile_cands(cfg_a, cfg_b, clone.sin, clone.smid,
-                                     clone.sout, self.split_kh,
-                                     self.pool2)
-        fit = [d for d in cands if _msplit_ok(d, self.msplit, self.pool2)]
-        check(bool(fit), "no legal row_tile for the reheighted pair")
-        clone.cfg_a = cfg_a
-        clone.cfg_b = dataclasses.replace(cfg_b, row_tile=fit[-1])
-        validate_packed_pair(clone.cfg_a, clone.cfg_b, clone.sin,
-                             clone.smid, clone.sout)
-        if self.pool2:
-            from .packed import validate_packed_maxpool2
-            validate_packed_maxpool2(clone.sout)
+        clone.a, clone.b = self.a.reheight(h), self.b.reheight(h)
+        clone._sync()
         return clone
 
     def __call__(self, packed_arr, operands=None):
-        """operands: optional override of the cached packed weights —
-        pass them as jit ARGUMENTS from a traced caller to keep the
-        compile keyed on shapes instead of weight values."""
+        """operands: optional override of both layers' packed weights (a's
+        then b's) — pass them as jit ARGUMENTS from a traced caller."""
         arr = jnp.asarray(packed_arr)
         check(arr.shape == self.sin.array_shape(arr.shape[0]),
               "input does not match the op's packed spec")
-        if operands is None:
-            operands = self._cache.for_call(arr)
-        return _pair_call(self.cfg_a, self.cfg_b, self.sin, self.smid,
-                          self.sout, arr, *operands,
-                          split_kh=self.split_kh, pool2=self.pool2,
-                          grid_order=self.grid_order, msplit=self.msplit,
-                          reuse_mid=self.reuse_mid)
+        na = len(self.a._operands)
+        ops_a = ops_b = None
+        if operands is not None:
+            ops_a, ops_b = list(operands[:na]), list(operands[na:])
+        return self.b(self.a(arr, operands=ops_a), operands=ops_b)
 
     # --- packed-weight persistence (mirrors PackedConvOp.save/load) ---
 
     def save(self, path: str):
         """Save both layers' packed operands + configs + specs to .npz."""
         from ..utils.persist import dump_configs
-        na = 8 if self.cfg_a.fuse_conv1x1 else 4
-        arrs = {}
-        for i, v in enumerate(self._cache.host):
-            layer, j = ("a", i) if i < na else ("b", i - na)
-            arrs[f"{layer}{j}"] = np.asarray(v)
+        arrs = {f"a{j}": np.asarray(v) for j, v in enumerate(self.a._operands)}
+        arrs.update({f"b{j}": np.asarray(v)
+                     for j, v in enumerate(self.b._operands)})
         np.savez(path, __cfg__=dump_configs(
             cfg_a=self.cfg_a, cfg_b=self.cfg_b, sin=self.sin,
             smid=self.smid, sout=self.sout),
-            __split_kh__=np.bool_(self.split_kh),
-            __pool2__=np.bool_(self.pool2),
-            __grid_order__=np.str_(self.grid_order),
-            __msplit__=np.int64(self.msplit),
-            __reuse_mid__=np.bool_(self.reuse_mid), **arrs)
+            __pool2__=np.bool_(self.pool2), **arrs)
 
     @classmethod
     def load(cls, path: str) -> "PackedConvPairOp":
+        from ..utils.opcache import OperandCache
         from ..utils.persist import load_configs
+        from .packed import validate_packed_conv, validate_packed_maxpool2
         data = np.load(path, allow_pickle=False)
         cfgs = load_configs(data["__cfg__"], cfg_a=ConvConfig,
                             cfg_b=ConvConfig, sin=PackedSpec,
                             smid=PackedSpec, sout=PackedSpec)
-        op = cls.__new__(cls)
-        op.cfg_a, op.cfg_b = cfgs["cfg_a"], cfgs["cfg_b"]
-        op.sin, op.smid, op.sout = cfgs["sin"], cfgs["smid"], cfgs["sout"]
-        op.split_kh = bool(data["__split_kh__"]) \
-            if "__split_kh__" in data else False
-        op.pool2 = bool(data["__pool2__"]) if "__pool2__" in data else False
-        op.grid_order = str(data["__grid_order__"]) \
-            if "__grid_order__" in data else "bt"
-        op.msplit = int(data["__msplit__"]) if "__msplit__" in data else 1
-        op.reuse_mid = bool(data["__reuse_mid__"]) \
-            if "__reuse_mid__" in data else False
-        na = 8 if op.cfg_a.fuse_conv1x1 else 4
-        nb = 8 if op.cfg_b.fuse_conv1x1 else 4
-        op._cache = OperandCache(
-            [data[f"a{j}"] for j in range(na)]
-            + [data[f"b{j}"] for j in range(nb)])
-        validate_packed_pair(op.cfg_a, op.cfg_b, op.sin, op.smid, op.sout)
-        if op.pool2:
-            # mirror the constructor: a stale/hand-edited checkpoint with
-            # odd halo/col_off must fail fast, not pool across boundaries
-            from .packed import validate_packed_maxpool2
-            validate_packed_maxpool2(op.sout)
-        return op
+        pool2 = bool(data["__pool2__"])
+        layers = []
+        for name, cfg, si, so, p2 in (("a", cfgs["cfg_a"], cfgs["sin"],
+                                       cfgs["smid"], False),
+                                      ("b", cfgs["cfg_b"], cfgs["smid"],
+                                       cfgs["sout"], pool2)):
+            validate_packed_conv(cfg, (si,), so)
+            if p2:
+                validate_packed_maxpool2(so)
+            op = PackedConvOp.__new__(PackedConvOp)
+            op.cfg, op.cfg_orig, op.ssum, op.pool2 = cfg, None, None, p2
+            op.sins, op.sin, op.sout = (si,), si, so
+            nops = 8 if cfg.fuse_conv1x1 else 4
+            op._cache = OperandCache([data[f"{name}{j}"]
+                                      for j in range(nops)])
+            layers.append(op)
+        pair = cls.__new__(cls)
+        pair.a, pair.b = layers
+        pair._sync()
+        return pair
+

@@ -3,42 +3,29 @@
 The reference library's hot loop never re-materialises activations between
 the 3x3 and the fused 1x1 (register residency, ``src/jit_conv_kernel.cc:
 275-277``) — but *between ops* it still hands the caller a plain dense u8
-tensor. On TPU the equivalent inter-op handoff (pad + u8->s8 shift +
-channel-pad + width-align) is a full HBM round-trip that costs ~20% of the
-fused kernel's roofline time. This module removes it: activations stay in a
-**packed domain** across ops, and the conv kernel itself emits its output
+tensor, and the next conv pays a pad + u8->s8 shift + channel-pad pass over
+it. The packed domain removes that pass: activations stay in the flat
+padded layout of ``ops/conv.py`` across ops, and the conv writes its output
 already packed for the next consumer.
 
 Packed domain (``PackedSpec``): an image of logical shape (N, H, W, C) u8
 is stored as an int8 array of shape ``(N, (H + 2*halo) * iwp, cp)`` where
 
-* values are centered: ``stored = u8_value - 128`` (the MXU int8 path is
+* values are centered: ``stored = u8_value - 128`` (the int8 products are
   s8 x s8; the -128 shift is corrected exactly via the per-oc column-sum
   term, see ops/layout.py),
 * the image occupies rows ``[halo, halo+H)`` and, within each row of
   ``iwp`` flat positions, columns ``[col_off, col_off+W)`` and lanes
   ``[0, C)``,
 * every non-image slot holds -128 (i.e. u8 zero = the conv padding value),
-* ``iwp`` is a multiple of 8 so flat row offsets are sublane-aligned.
+* ``iwp`` is a multiple of 8.
 
-The packed conv kernel (stride 1, u8 destination) then:
-
-* slices its KH row blocks straight out of the incoming packed array,
-* applies the kw taps as input-side byte shifts on the bitcast-i32 view,
-  lane-concatenated into ONE dot (output-side ``pltpu.roll`` partial
-  sums as the fallback for taps outside the byte-shift range),
-* writes **its own halo**: the grid covers the output's padded row space
-  uniformly and the epilogue masks pad rows / margin columns / pad lanes
-  to -128 — so the output is a valid packed image with a caller-chosen
-  ``halo_out``, ready for the next conv with no XLA glue at all. Boundary
-  tiles whose read window would poke past the input clamp it and un-shift
-  the result with a static roll (wrapped rows land in masked pad rows);
-  choosing ``halo_in = halo_out + ph`` ("halo erosion") makes every
-  window in-bounds and removes the roll branches entirely.
-
-Steady-state cost per fused conv = one HBM read of the packed input + one
-HBM write of the packed output + the MXU work. ``pack_image`` /
-``unpack_image`` convert at the model boundary only.
+A packed conv is one ``ops.conv.flat_conv`` call: its taps read the
+incoming packed array at their flat offsets, and its epilogue masks pad
+rows, margin columns and pad lanes to -128, so the output is a valid
+packed image with a caller-chosen ``halo_out`` and ``col_off_out``, ready
+for the next conv with no XLA glue. ``pack_image`` / ``unpack_image``
+convert at the model boundary only.
 """
 from __future__ import annotations
 
@@ -48,16 +35,13 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..config import ConvConfig
 from ..types import dtype
-from ..utils import env
 from ..utils.logger import check
 from ..utils.mathutil import round_up
 from ..utils.opcache import OperandCache
-from .requant import requant_to_u8_centered
+from .conv import FlatPlan, flat_conv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +57,7 @@ class PackedSpec:
     iwp: int      # flat positions per row (multiple of 8)
 
     def __post_init__(self):
-        check(self.iwp % 8 == 0, "packed iwp must be sublane-aligned")
+        check(self.iwp % 8 == 0, "packed iwp must be a multiple of 8")
         check(self.col_off + self.w <= self.iwp, "image exceeds packed row")
 
     @property
@@ -147,33 +131,20 @@ def unpack_image_sharded(arr, spec_local: PackedSpec, n_shards: int,
     return xp.concatenate(slabs, axis=1)
 
 
-def _boundary_offs(cfg: ConvConfig, sin: PackedSpec, sout: PackedSpec):
-    """Static row offsets by which the first/last row-tile's input window
-    runs out of bounds. The kernel clamps the window and un-shifts the
-    result with a static roll; the wrapped rows land in masked pad rows.
-
-    With output flat row j reading input flat rows j + delta - ph + ki
-    (ki < kh) and oh = ih + 2*ph - kh + 1, the top underflow and the bottom
-    overflow are both exactly max(0, ph - delta)."""
-    delta = sin.halo - sout.halo
-    off = max(0, cfg.ph - delta)
-    return off, off
-
-
 def validate_packed_conv(cfg: ConvConfig, sins, sout: PackedSpec,
                          ssum: PackedSpec = None):
     """Legality of running cfg from sins to sout (init_conf-style checks).
 
     sins is a tuple of input specs: a single entry for a plain conv, or
     several whose lane-concatenation forms the conv input (concat-free
-    branch merge — the kernel reads each source separately and joins them
-    in VMEM, so the channel concat never exists in HBM).
+    branch merge — the conv reads each source separately, so the channel
+    concat never exists in memory).
 
     ssum (required iff cfg.with_sum): spec of the packed eltwise-sum
     operand. It must be the same logical image as the output with the same
     column geometry; its halo may be LARGER than the output's (halo
     erosion leaves producers with deeper halos than consumers emit — the
-    kernel re-bases rows by the static difference)."""
+    conv re-bases rows by the static difference)."""
     sins = sins if isinstance(sins, (tuple, list)) else (sins,)
     sin = sins[0]
     for s in sins[1:]:
@@ -217,386 +188,41 @@ def validate_packed_conv(cfg: ConvConfig, sins, sout: PackedSpec,
     check(sin.col_off >= cfg.pw, "input col_off too small for kernel width")
     check(sin.iwp - sin.col_off - sin.w >= cfg.kw - 1 - cfg.pw,
           "input right margin too small for kernel width")
-    # the kw-as-roll identity requires equal row strides in and out
+    # the flat tap offsets need equal row strides in and out
     check(sin.iwp == sout.iwp, "packed conv needs iwp_in == iwp_out")
-    t = cfg.row_tile
-    check(sout.rows % t == 0, "row_tile must divide oh + 2*out halo")
-    check(sin.rows >= t + cfg.kh - 1,
-          "input too short for one row-tile window")
-    off_top, off_bot = _boundary_offs(cfg, sin, sout)
-    # rolled wrap rows must land in output pad rows, clamping must engage
-    # only at the extreme tiles, and the two boundary branches must not
-    # share a tile
-    check(off_top <= sout.halo and off_bot <= sout.halo,
-          "output halo too small to absorb boundary roll")
-    check(off_top <= t and off_bot <= t,
-          "row_tile smaller than boundary overlap")
-    if off_top or off_bot:
-        check(sout.rows // t >= 2,
-              "boundary rolls need at least two row tiles "
-              "(raise input halo or lower row_tile)")
-
-
-def _shifted_patch(patch, d, interp):
-    """patch[p + d] along the flat-position dim, exact for |d| < 4.
-
-    The int8 patch has no native roll; its bitcast-i32 view packs 4
-    consecutive flat positions per word (little-endian within the group),
-    so a +-d byte shift is two logical shifts + an OR with the
-    neighbouring word (one 4-granular pltpu.roll). Wrapped rows land on
-    outputs the caller discards/masks — the same wrap contract as the
-    output-side roll formulation, so the two are bit-identical."""
-    if d == 0:
-        return patch
-    if interp:
-        return jnp.roll(patch, -d, 0)
-    p32 = pltpu.bitcast(patch, jnp.int32)
-    mq = p32.shape[0]
-    shr = jax.lax.shift_right_logical
-    shl = jax.lax.shift_left
-    if d > 0:
-        nxt = pltpu.roll(p32, mq - 1, 0)             # p32[g + 1]
-        out = shr(p32, 8 * d) | shl(nxt, 32 - 8 * d)
-    else:
-        prv = pltpu.roll(p32, 1, 0)                  # p32[g - 1]
-        out = shl(p32, -8 * d) | shr(prv, 32 + 8 * d)
-    return pltpu.bitcast(out, jnp.int8)
-
-
-def _roll_boundary(x, t, nt, off_top, off_bot, iwp, interp):
-    """Un-shift a clamped window with a static roll at the extreme tiles
-    (module docstring): wrapped rows land in rows the output/intermediate
-    mask forces to -128 (validate_packed_conv / validate_packed_pair).
-    Shared by the packed single-op kernel and the megakernel."""
-    if not (off_top or off_bot):
-        return x
-    if interp:
-        if off_top:
-            x = jnp.where(t == 0, jnp.roll(x, off_top * iwp, 0), x)
-        if off_bot:
-            x = jnp.where(t == nt - 1, jnp.roll(x, -off_bot * iwp, 0), x)
-        return x
-    p32 = pltpu.bitcast(x, jnp.int32)
-    mq = x.shape[0] // 4
-    if off_top:
-        p32 = jnp.where(t == 0, pltpu.roll(p32, off_top * iwp // 4, 0),
-                        p32)
-    if off_bot:
-        p32 = jnp.where(t == nt - 1,
-                        pltpu.roll(p32, mq - off_bot * iwp // 4, 0), p32)
-    return pltpu.bitcast(p32, jnp.int8)
-
-
-def _packed_kernel(*refs, cfg: ConvConfig, sins, sout: PackedSpec,
-                   ssum: PackedSpec = None, pool2: bool = False,
-                   t_off: int = 0, nt_tot: int = None, row0_off: int = 0,
-                   sparse_taps: tuple = None, emit_acc1: bool = False):
-    n_src = len(sins)
-    sin = sins[0]
-    src_refs, refs = refs[:n_src], refs[n_src:]
-    sum_ref = None
-    if ssum is not None:
-        sum_ref, *refs = refs
-    if cfg.fuse_conv1x1:
-        (w3_ref, corr0_ref, bias0_ref, scale0_ref,
-         w1_ref, corr1_ref, bias1_ref, scale1_ref, out_ref) = refs
-    else:
-        w3_ref, corr0_ref, bias0_ref, scale0_ref, out_ref = refs
-        w1_ref = None
-    T = cfg.row_tile
-    iwp = sin.iwp
-    m = T * iwp
-    # t_off/nt_tot: this call covers output tiles [t_off, t_off + grid1)
-    # of a larger nt_tot-tile space (the sp_packed interior/boundary
-    # split, parallel/shard.py); tile indices, masks and boundary rolls
-    # all use the ABSOLUTE tile index
-    t = t_off + pl.program_id(1)
-    nt = nt_tot if nt_tot is not None else pl.num_programs(1)
-    interp = env.interpret_kernels()
-    # The grid covers the output's padded row space uniformly — pad rows
-    # are computed like image rows and masked to -128 at store. Tile t
-    # writes output flat rows [t*T, t*T + T); tap ki of output flat row j
-    # reads input flat row j + delta - ph + ki (delta re-bases between the
-    # two halo sizes). At the extreme tiles that window can poke out of the
-    # input by the static off_top/off_bot rows; the window is clamped
-    # in-bounds and the int8 patch is un-shifted branch-free with a STATIC
-    # roll + scalar-predicated select on its bitcast-i32 view (4x less
-    # data than rolling the i32 accumulator; measured ~8x cheaper than
-    # pl.when branches, whose control flow stalls the store pipeline).
-    # The roll's wrapped rows land in masked pad rows
-    # (validate_packed_conv guarantees off <= halo_out and >= 2 tiles).
-    delta = sin.halo - sout.halo
-    off_top, off_bot = _boundary_offs(cfg, sin, sout)
-    # row0_off: the input ref holds rows [row0_off, row0_off + sin.rows)
-    # of the full array (sliced boundary calls); window starts re-base
-    s0 = t * T + delta - cfg.ph - row0_off
-    if off_top or off_bot:
-        s0 = jnp.clip(s0, 0, sin.rows - (T + cfg.kh - 1))
-    def boundary_roll(x):
-        return _roll_boundary(x, t, nt, off_top, off_bot, iwp, interp)
-
-    blocks = []
-    for ki in range(cfg.kh):
-        base = pl.multiple_of((s0 + ki) * iwp, 8)
-        if n_src == 1:
-            blocks.append(src_refs[0][0, pl.ds(base, m), :])
-        else:
-            # lane-concat the sources in VMEM: weight K rows are ordered
-            # (ki, src0 lanes..., src1 lanes...), matching cfg.ic layout
-            blocks.append(jnp.concatenate(
-                [r[0, pl.ds(base, m), :] for r in src_refs], axis=-1))
-    if sparse_taps is None:
-        patch = boundary_roll(jnp.concatenate(blocks, axis=-1))
-    # out flat col c holds image col (c - col_off_out); tap kj reads the
-    # input at flat position p + d with d = col_off_in - col_off_out + kj
-    # - pw. Two exact formulations (identical incl. wrap rows, which land
-    # only on discarded/masked outputs):
-    #   * |d| < 4 for every tap (the common case): INPUT-side byte shifts
-    #     of the int8 patch on its bitcast-i32 view, lane-concatenated
-    #     into ONE K = kw*kh*icp dot — no s32 accumulator rolls and no
-    #     VPU adds between taps (roll_probe.py bshift1: bit-exact, fastest
-    #     variant measured).
-    #   * otherwise: per-tap dots with OUTPUT-side pltpu.roll of the s32
-    #     partials (the roll conv identity y[p] = sum_kj z_kj[p + d_kj]).
-    ksub = cfg.kh * cfg.icp
-    ds_taps = [sin.col_off - sout.col_off + kj - cfg.pw
-               for kj in range(cfg.kw)]
-    if sparse_taps is not None:
-        # sparse-phase s2d: one lane-sliced, byte-shifted tap per
-        # ORIGINAL strided-conv tap — kh*kw*ic K rows instead of the
-        # dense lowering's ceil(k/s)^2 * s^2 * ic (16/9 MAC inflation
-        # for 3x3/s2; layout.pack_sparse_s2d_weights)
-        rolled = [boundary_roll(b) for b in blocks]
-        parts = [_shifted_patch(
-            rolled[qi][:, lo:hi],
-            sin.col_off - sout.col_off + qj - cfg.pw, interp)
-            for (qi, lo, hi, qj) in sparse_taps]
-        wide = jnp.concatenate(parts, axis=-1)
-        acc = jnp.dot(wide, w3_ref[...], preferred_element_type=jnp.int32)
-    elif all(abs(d) < 4 for d in ds_taps):
-        taps = [_shifted_patch(patch, d, interp) for d in ds_taps]
-        wide = taps[0] if cfg.kw == 1 else jnp.concatenate(taps, axis=-1)
-        acc = jnp.dot(wide, w3_ref[...], preferred_element_type=jnp.int32)
-    else:
-        acc = None
-        for kj, d in enumerate(ds_taps):
-            part = jnp.dot(patch, w3_ref[kj * ksub:(kj + 1) * ksub, :],
-                           preferred_element_type=jnp.int32)
-            if d % m:
-                part = (jnp.roll(part, -d, 0) if interp
-                        else pltpu.roll(part, (m - d) % m, 0))
-            acc = part if acc is None else acc + part
-    acc = acc + corr0_ref[...]
-
-    # Non-image slots must come out as exactly -128 (u8 zero) so the
-    # output is a valid packed image. An int8 select at store time is
-    # pathologically slow on the VPU (~35% of kernel runtime measured),
-    # so instead: (a) pad lanes — the packed scale vectors hold 0.0 in
-    # lanes >= oc, so the epilogue lands on round(0)-128 for free;
-    # (b) margin columns and pad rows — a tiny (m, 1) f32 0/1 mask
-    # multiplied into the final f32 chain before rounding.
-    pos = jax.lax.broadcasted_iota(jnp.int32, (m, 1), 0)
-    col = pos % iwp
-    row = t * T + pos // iwp
-    maskf = (jnp.logical_and(
-        jnp.logical_and(col >= sout.col_off, col < sout.col_off + cfg.ow),
-        jnp.logical_and(row >= sout.halo, row < sout.halo + cfg.oh))
-        ).astype(jnp.float32)
-
-    sum_rounded = None
-    if sum_ref is not None:
-        # the packed sum operand is a valid packed image of the OUTPUT's
-        # geometry; its halo may be deeper (halo erosion), so re-base rows
-        # by the static difference. u8 value = stored + 128; pre-round the
-        # scaled term for the exact integer-domain join (requant()'s sum
-        # order). Non-image slots hold -128 -> u8 0 -> round(0) == 0, so
-        # the operand masks itself.
-        from .requant import round_f32
-        ds = ssum.halo - sout.halo
-        sbase = pl.multiple_of((t * T + ds) * iwp, 8)
-        sv = sum_ref[0, pl.ds(sbase, m), :].astype(jnp.int32) + 128
-        fin_round = cfg.conv1_round if cfg.fuse_conv1x1 else cfg.conv0_round
-        sum_rounded = round_f32(
-            sv.astype(jnp.float32) * np.float32(cfg.sum_scale), fin_round)
-
-    # fused 2x2/s2 max pool (pool2): pool the final clamped f32 u8-domain
-    # values INSIDE the requant epilogue, before the byte pack — bit-
-    # identical to packed_maxpool2 on the conv output (the pack is
-    # monotone; pad slots hold u8 zero; 2x2 windows never straddle
-    # image/pad boundaries because halo and col_off are even) and the
-    # only formulation Mosaic takes (no int8 max exists). Also shrinks
-    # the pack work 4x.
-    pool_fn = None
-    if pool2:
-        T2, iw2 = T // 2, iwp // 2
-
-        def pool_fn(xf):
-            x4 = xf.reshape(T2, 2, iw2, 2, xf.shape[-1])
-            p = jnp.maximum(jnp.maximum(x4[:, 0, :, 0], x4[:, 0, :, 1]),
-                            jnp.maximum(x4[:, 1, :, 0], x4[:, 1, :, 1]))
-            return p.reshape(T2 * iw2, xf.shape[-1])
-
-    def epilogue(acc_t):
-        if cfg.fuse_conv1x1:
-            x1 = requant_to_u8_centered(
-                acc_t, bias0_ref[...] if cfg.conv0_with_bias else None,
-                scale0_ref[...], cfg.conv0_round)
-            acc1 = jnp.dot(x1, w1_ref[...], preferred_element_type=jnp.int32)
-            acc1 = acc1 + corr1_ref[...]
-            if emit_acc1:
-                # TP mode: emit the PARTIAL s32 1x1 accumulator — the
-                # collective completes the contraction BEFORE the
-                # (nonlinear) final requant (parallel/shard.py
-                # tp_packed_fused, same contract as conv_fused_acc1)
-                out_ref[0] = acc1
-                return
-            out_ref[0] = requant_to_u8_centered(
-                acc1, bias1_ref[...] if cfg.conv1_with_bias else None,
-                scale1_ref[...], cfg.conv1_round, zero_mask=maskf,
-                sum_rounded=sum_rounded, pool_fn=pool_fn)
-        else:
-            out_ref[0] = requant_to_u8_centered(
-                acc_t, bias0_ref[...] if cfg.conv0_with_bias else None,
-                scale0_ref[...], cfg.conv0_round, zero_mask=maskf,
-                sum_rounded=sum_rounded, pool_fn=pool_fn)
-
-    epilogue(acc)
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("cfg", "sins", "sout", "ssum",
-                                    "pool2", "t_range", "nt_tot",
-                                    "row0_off", "sparse_taps",
-                                    "emit_acc1", "pipeline"))
+                   static_argnames=("cfg", "sins", "sout", "ssum", "pool2",
+                                    "rows", "emit_acc1"))
 def _packed_call(cfg: ConvConfig, sins, sout: PackedSpec,
                  arrs, *operands, ssum: PackedSpec = None, sum_arr=None,
-                 pool2: bool = False, t_range: tuple = None,
-                 nt_tot: int = None, row0_off: int = 0,
-                 sparse_taps: tuple = None, emit_acc1: bool = False,
-                 pipeline: tuple = None):
-    # pipeline: optional (in_bufs, in_lookahead, out_bufs) Buffered
-    # override for the src/out block specs (0 entries keep the default
-    # double buffering) — a probe knob (scratch/buffer_probe.py)
-    """t_range=(t0, t1): emit only output tiles [t0, t1) of the nt_tot
-    tile space (output shape covers just the range; caller concatenates).
-    row0_off: the input arrays are row slices starting at that flat row
-    of the full packed array. Both serve sp_packed's interior/boundary
-    overlap split (parallel/shard.py)."""
+                 pool2: bool = False, rows: tuple = None,
+                 emit_acc1: bool = False):
+    """One packed conv over output rows ``rows=(r0, r1)`` of sout's padded
+    row space (all of them by default; sp_packed's interior/boundary split
+    asks for bands, parallel/shard.py). Output row j reads input rows
+    ``j + (sin.halo - sout.halo) - ph + ki``."""
     sin = sins[0]
-    n = arrs[0].shape[0]
-    T = cfg.row_tile
-    iwp = sin.iwp
-    m = T * iwp
-    ocp_out = cfg.oc1x1p if cfg.fuse_conv1x1 else cfg.ocp
-    if sparse_taps is not None:
-        k_dim = sum(hi - lo for (_, lo, hi, _) in sparse_taps)
-    else:
-        k_dim = cfg.kh * cfg.kw * cfg.icp
-    t0, t1 = t_range if t_range is not None else (0, sout.rows // T)
-    grid = (n, t1 - t0)
-
-    in_mode = out_mode = None
-    if pipeline is not None:
-        ib, ila, ob = pipeline
-        in_mode = pl.Buffered(ib, use_lookahead=bool(ila)) if ib else None
-        out_mode = pl.Buffered(ob) if ob else None
-    src_specs = [pl.BlockSpec((1, s.rows * iwp, s.cp),
-                              lambda b, t: (b, 0, 0),
-                              pipeline_mode=in_mode,
-                              memory_space=pltpu.VMEM) for s in sins]
-    w3_spec = pl.BlockSpec((k_dim, cfg.ocp), lambda b, t: (0, 0),
-                           memory_space=pltpu.VMEM)
-
-    def vec(nlanes):
-        return pl.BlockSpec((1, nlanes), lambda b, t: (0, 0),
-                            memory_space=pltpu.VMEM)
-
-    in_specs = src_specs
-    args = list(arrs)
+    r0, r1 = rows if rows is not None else (0, sout.rows)
+    plan = FlatPlan(
+        iwp=sin.iwp, rows_out=r1 - r0,
+        row_base=r0 + sin.halo - sout.halo - cfg.ph,
+        col_shift=sin.col_off - sout.col_off - cfg.pw,
+        mask=(r0, sout.halo, cfg.oh, sout.col_off, cfg.ow))
+    sum_off = 0
     if ssum is not None:
-        # whole-array block (like src): the kernel row-slices it with the
-        # static halo re-base, so differing producer/consumer halos need
-        # no repack
-        in_specs = in_specs + [
-            pl.BlockSpec((1, ssum.rows * iwp, ssum.cp),
-                         lambda b, t: (b, 0, 0), memory_space=pltpu.VMEM)]
-        args.append(sum_arr)
-    in_specs = in_specs + [w3_spec, vec(cfg.ocp), vec(cfg.ocp),
-                           vec(cfg.ocp)]
-    if cfg.fuse_conv1x1:
-        in_specs += [pl.BlockSpec((cfg.ocp, cfg.oc1x1p), lambda b, t: (0, 0),
-                                  memory_space=pltpu.VMEM),
-                     vec(cfg.oc1x1p), vec(cfg.oc1x1p), vec(cfg.oc1x1p)]
-    if pool2:
-        m_out = (T // 2) * (iwp // 2)
-    else:
-        m_out = m
-    out_dt = jnp.int32 if emit_acc1 else jnp.int8
-    out_shape = (n, (t1 - t0) * m_out, ocp_out)
-    out_spec = pl.BlockSpec((1, m_out, ocp_out), lambda b, t: (b, t, 0),
-                            pipeline_mode=out_mode,
-                            memory_space=pltpu.VMEM)
-
-    flops = 2 * m * k_dim * cfg.ocp
-    if cfg.fuse_conv1x1:
-        flops += 2 * m * cfg.ocp * cfg.oc1x1p
-    nbytes = (sin.rows * iwp * cfg.icp // max(grid[1], 1)
-              + m_out * ocp_out)
-
-    operands = [op.reshape(1, -1) if op.ndim == 1 else op for op in operands]
-    return pl.pallas_call(
-        functools.partial(_packed_kernel, cfg=cfg, sins=sins, sout=sout,
-                          ssum=ssum, pool2=pool2, t_off=t0,
-                          nt_tot=nt_tot, row0_off=row0_off,
-                          sparse_taps=sparse_taps, emit_acc1=emit_acc1),
-        out_shape=jax.ShapeDtypeStruct(out_shape, out_dt),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_spec,
-        compiler_params=env.tpu_compiler_params(("parallel", "parallel")),
-        cost_estimate=pl.CostEstimate(
-            flops=flops * grid[0] * grid[1],
-            bytes_accessed=nbytes * grid[0] * grid[1],
-            transcendentals=0),
-        interpret=env.interpret_kernels(),
-    )(*args, *operands)
+        sum_off = (r0 + ssum.halo - sout.halo) * sin.iwp
+    out = flat_conv(cfg, plan, arrs, operands, sum_arr=sum_arr,
+                    sum_off=sum_off, emit_acc1=emit_acc1)
+    return _maxpool2_flat(out, sin.iwp) if pool2 else out
 
 
-def _pick_row_tile(cfg: ConvConfig, sin: PackedSpec, sout: PackedSpec,
-                   pool2: bool) -> int:
-    """Largest legal row tile: divides the padded output rows, M <= 8192,
-    and the lane-concatenated wide patch (the dominant in-kernel buffer
-    of the single-dot tap formulation) <= 24 MB (tile_probe.py: T=64
-    beats T=16 by ~1pp on the flagship; past ~24 MB Mosaic loses
-    double-buffering headroom). Leaves >= 2 tiles when boundary rolls
-    engage; even tiles when the pool2 epilogue is fused."""
-    off_top, off_bot = _boundary_offs(cfg, sin, sout)
-    need_two = bool(off_top or off_bot)
-    k_dim = cfg.kh * cfg.kw * cfg.icp
-    tmax = max(min(8192, 24 * 2 ** 20 // k_dim) // sin.iwp, 1)
-    cands = [d for d in range(1, sout.rows + 1)
-             if sout.rows % d == 0 and d <= tmax
-             and d >= max(off_top, off_bot)
-             and (not pool2 or d % 2 == 0)
-             and (not need_two or sout.rows // d >= 2)]
-    check(bool(cands), "no legal row_tile for packed geometry")
-    return cands[-1]
-
-
-def _narrow_cfg(cfg: ConvConfig) -> ConvConfig:
-    """Clone cfg with chain-friendly lane padding.
-
-    The dense path pads output lanes to the full 128-lane width; for the
-    packed domain the output lane count must equal the *next* conv's icp
-    (a 32-multiple). The MXU is 128 lanes wide either way — narrow padding
-    changes HBM bytes, not MXU time — so the packed path always uses
-    round_up(c, 32) lanes, which is exactly what PackedSpec.make picks for
-    the consumer.
-    """
-    ocp = max(round_up(cfg.oc, 32), 32)
-    oc1x1p = max(round_up(cfg.oc1x1, 32), 32) if cfg.fuse_conv1x1 else 0
-    # the packed kernel reads the whole K panel per step (no ic chunking)
-    return dataclasses.replace(cfg, ocp=ocp, oc1x1p=oc1x1p, ic_chunks=1)
+def _maxpool2_flat(x, iwp: int):
+    """2x2/s2 max over a flat (n, rows*iwp, cp) array."""
+    n, m, cp = x.shape
+    x = x.reshape(n, m // (2 * iwp), 2, iwp // 2, 2, cp)
+    return x.max(axis=(2, 4)).reshape(n, m // 4, cp)
 
 
 def _same_image_geometry(specs):
@@ -635,33 +261,10 @@ def packed_concat(arrs, specs, post_relu: bool = True):
     return out, spec
 
 
-def _largest_divisor(n: int, cap: int) -> int:
-    for d in range(min(n, cap), 0, -1):
-        if n % d == 0:
-            return d
-    return 1
-
-
-def _packed_sum_kernel(a_ref, b_ref, out_ref):
-    s = a_ref[...].astype(jnp.int32) + b_ref[...].astype(jnp.int32) + 128
-    out_ref[...] = jnp.clip(s, -128, 127).astype(jnp.int8)
-
-
 @jax.jit
 def _packed_sum_call(a, b):
-    n, m, cp = a.shape
-    tile = _largest_divisor(m, 4096)
-    spec = pl.BlockSpec((1, tile, cp), lambda bi, t: (bi, t, 0),
-                        memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        _packed_sum_kernel,
-        out_shape=jax.ShapeDtypeStruct((n, m, cp), jnp.int8),
-        grid=(n, m // tile),
-        in_specs=[spec, spec],
-        out_specs=spec,
-        compiler_params=env.tpu_compiler_params(("parallel", "parallel")),
-        interpret=env.interpret_kernels(),
-    )(a, b)
+    s = a.astype(jnp.int32) + b.astype(jnp.int32) + 128
+    return jnp.clip(s, -128, 127).astype(jnp.int8)
 
 
 def packed_sum_relu(a, b, spec: PackedSpec, with_relu: bool = True):
@@ -690,33 +293,9 @@ def validate_packed_maxpool2(spec: PackedSpec):
     check(spec.iwp % 16 == 0, "packed maxpool2 needs iwp % 16 == 0")
 
 
-def _maxpool2_kernel(x_ref, out_ref, *, to: int, iwp: int, cp: int):
-    x = x_ref[0].astype(jnp.int32).reshape(to, 2, iwp // 2, 2, cp)
-    m = jnp.max(jnp.max(x, axis=3), axis=1)
-    out_ref[0] = m.reshape(to * (iwp // 2), cp).astype(jnp.int8)
-
-
 @functools.partial(jax.jit, static_argnames=("spec",))
 def _maxpool2_call(spec: PackedSpec, arr):
-    n = arr.shape[0]
-    iwp, cp = spec.iwp, spec.cp
-    rows_out = spec.rows // 2
-    to = _largest_divisor(rows_out, max(2048 // iwp, 1))
-    grid = (n, rows_out // to)
-    return pl.pallas_call(
-        functools.partial(_maxpool2_kernel, to=to, iwp=iwp, cp=cp),
-        out_shape=jax.ShapeDtypeStruct((n, rows_out * (iwp // 2), cp),
-                                       jnp.int8),
-        grid=grid,
-        in_specs=[pl.BlockSpec((1, 2 * to * iwp, cp),
-                               lambda b, t: (b, t, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, to * (iwp // 2), cp),
-                               lambda b, t: (b, t, 0),
-                               memory_space=pltpu.VMEM),
-        compiler_params=env.tpu_compiler_params(("parallel", "parallel")),
-        interpret=env.interpret_kernels(),
-    )(arr)
+    return _maxpool2_flat(arr, spec.iwp)
 
 
 def packed_maxpool2(arr, spec: PackedSpec):
@@ -724,10 +303,10 @@ def packed_maxpool2(arr, spec: PackedSpec):
 
     Max pooling commutes with the -128 centering shift (it is monotone), so
     the pool runs directly on the stored s8 values: pair rows, pair flat
-    columns, take the max — a single reshape-max Pallas kernel with no
-    relayout. Legality: h, w, halo, col_off all even (so 2x2 windows align
-    with the image region and halo/margins map to halo/margins) and
-    iwp % 16 == 0 (so the halved row stays sublane-aligned). Non-image
+    columns, take the max. Legality: h, w, halo, col_off all even (so 2x2
+    windows align with the image region and halo/margins map to
+    halo/margins) and iwp % 16 == 0 (so the halved row keeps iwp a
+    multiple of 8). Non-image
     slots pool to max(-128, ...) = -128, keeping the output a valid packed
     image with ``halo/2``, ``col_off/2``, ``iwp/2``.
 
@@ -743,43 +322,12 @@ def packed_maxpool2(arr, spec: PackedSpec):
     return _maxpool2_call(spec, arr), out_spec
 
 
-def _sum_pool_kernel(*refs, to: int, iwp: int):
-    src_refs, r_ref, out_ref = refs[:-2], refs[-2], refs[-1]
-    parts = [r[0] for r in src_refs]
-    y = (parts[0] if len(parts) == 1
-         else jnp.concatenate(parts, axis=-1)).astype(jnp.int32)
-    s = y + r_ref[0].astype(jnp.int32) + 128
+@functools.partial(jax.jit, static_argnames=("rspec",))
+def _sum_pool_call(rspec: PackedSpec, ys, r):
+    y = ys[0] if len(ys) == 1 else jnp.concatenate(ys, axis=-1)
+    s = y.astype(jnp.int32) + r.astype(jnp.int32) + 128
     s = jnp.clip(s, -128, 127)          # saturating u8 sum, centered
-    cp = s.shape[-1]
-    x = s.reshape(to, 2, iwp // 2, 2, cp)
-    m = jnp.max(jnp.max(x, axis=3), axis=1)
-    out_ref[0] = m.reshape(to * (iwp // 2), cp).astype(jnp.int8)
-
-
-@functools.partial(jax.jit, static_argnames=("yspecs", "rspec"))
-def _sum_pool_call(yspecs, rspec: PackedSpec, ys, r):
-    n = r.shape[0]
-    iwp = rspec.iwp
-    rows_out = rspec.rows // 2
-    to = _largest_divisor(rows_out, max(2048 // iwp, 1))
-    grid = (n, rows_out // to)
-
-    def blk(cp):
-        return pl.BlockSpec((1, 2 * to * iwp, cp), lambda b, t: (b, t, 0),
-                            memory_space=pltpu.VMEM)
-
-    return pl.pallas_call(
-        functools.partial(_sum_pool_kernel, to=to, iwp=iwp),
-        out_shape=jax.ShapeDtypeStruct(
-            (n, rows_out * (iwp // 2), rspec.cp), jnp.int8),
-        grid=grid,
-        in_specs=[blk(s.cp) for s in yspecs] + [blk(rspec.cp)],
-        out_specs=pl.BlockSpec((1, to * (iwp // 2), rspec.cp),
-                               lambda b, t: (b, t, 0),
-                               memory_space=pltpu.VMEM),
-        compiler_params=env.tpu_compiler_params(("parallel", "parallel")),
-        interpret=env.interpret_kernels(),
-    )(*ys, r)
+    return _maxpool2_flat(s, rspec.iwp).astype(jnp.int8)
 
 
 def packed_sum_relu_maxpool2(ys, r, yspecs, rspec: PackedSpec,
@@ -787,13 +335,12 @@ def packed_sum_relu_maxpool2(ys, r, yspecs, rspec: PackedSpec,
     """Fused (concat ∘ sum+ReLU ∘ 2x2/s2 maxpool) in the packed domain.
 
     ``ys`` is a list of packed arrays whose lane-concatenation forms the
-    left sum operand (the branch-merge concat never exists in HBM) and
-    ``r`` the right operand. Semantics = ``packed_maxpool2(packed_sum_relu(
-    packed_concat(ys), r))``: the saturating clip commutes with the
-    monotone max, and pooling in the already-widened int32 domain removes
-    both the pool's HBM round-trip and its separate widening pass — the
-    same fusion philosophy as the reference's planned conv+sum+relu+pool
-    post-op chain (test/test_conv_relu_pooling.cc:313-391).
+    left sum operand and ``r`` the right operand. Semantics =
+    ``packed_maxpool2(packed_sum_relu(packed_concat(ys), r))``: the
+    saturating clip commutes with the monotone max, and XLA fuses the
+    concat, sum and pool into one pass — the reference's planned
+    conv+sum+relu+pool post-op chain (test/test_conv_relu_pooling.cc:
+    313-391).
     """
     del with_relu  # identity for u8 operands (see packed_sum_relu)
     yspecs = tuple(yspecs) if isinstance(yspecs, (tuple, list)) \
@@ -813,7 +360,7 @@ def packed_sum_relu_maxpool2(ys, r, yspecs, rspec: PackedSpec,
     out_spec = PackedSpec(h=rspec.h // 2, w=rspec.w // 2, c=rspec.c,
                           cp=rspec.cp, halo=rspec.halo // 2,
                           col_off=rspec.col_off // 2, iwp=rspec.iwp // 2)
-    return _sum_pool_call(yspecs, rspec, tuple(ys), r), out_spec
+    return _sum_pool_call(rspec, tuple(ys), r), out_spec
 
 
 @functools.partial(jax.jit, static_argnames=("spec", "round"))
@@ -829,7 +376,7 @@ def packed_global_avgpool(arr, spec: PackedSpec, round=None):
         sum_u8(image) = sum_s8(all slots) + 128 * n_slots
 
     The divide/round/saturate epilogue matches ops/pool.py's avg_exc chain
-    exactly (int32 sums -> f32 * (1/(h*w)) -> round -> saturate), so the
+    exactly (int32 sums -> f32 / (h*w) -> round -> saturate), so the
     result is bitwise the dense op's. Returns (n, 1, 1, c) u8 for the
     classification head. Reference pooling semantics:
     test/test_conv_relu_pooling.cc:238-259 (avg excludes padding)."""
@@ -844,7 +391,7 @@ def packed_global_avgpool(arr, spec: PackedSpec, round=None):
     n_slots = spec.rows * spec.iwp
     sums = (jnp.sum(arr.astype(jnp.int32), axis=1)
             + jnp.int32(128 * n_slots))                    # (n, cp) u8 sums
-    val = sums.astype(jnp.float32) * np.float32(1.0 / (spec.h * spec.w))
+    val = sums.astype(jnp.float32) / np.float32(spec.h * spec.w)
     out = saturate_to(round_f32(val, round), dtype.u8)
     return out[:, :spec.c].reshape(n, 1, 1, spec.c)
 
@@ -874,18 +421,14 @@ class PackedConvOp:
                  col_off_out: int = None, halo_out: int = None,
                  sum_spec: PackedSpec = None, pool2: bool = False):
         from . import layout
-        # strided configs run the stride-1 packed kernel on the s2d grid
-        # (the same lowering ConvOp uses, ops/layout.py); the op's sin then
-        # describes the packed s2d image and pack_input() applies the
-        # regroup at the model boundary
+        # strided configs run the stride-1 packed conv on the space-to-depth
+        # grid (ops/layout.py); the op's sin then describes the packed s2d
+        # image and pack_input() applies the regroup at the model boundary
         self.cfg_orig = None
-        self.sparse_taps = None
-        wei_orig = wei
         if cfg.sh > 1 or cfg.sw > 1:
             self.cfg_orig = cfg
             wei = layout.s2d_weights(cfg, np.asarray(wei))
             cfg = layout.s2d_cfg(cfg)
-        cfg = _narrow_cfg(cfg)
         packed = layout.pack_all(cfg, wei, bia, wei1x1, bia1x1)
         out_c = cfg.oc1x1 if cfg.fuse_conv1x1 else cfg.oc
         ocp_out = cfg.oc1x1p if cfg.fuse_conv1x1 else cfg.ocp
@@ -903,23 +446,6 @@ class PackedConvOp:
         sout = PackedSpec(h=cfg.oh, w=cfg.ow, c=out_c, cp=ocp_out,
                           halo=halo_out, col_off=col_off_out,
                           iwp=sin.iwp)
-        if self.cfg_orig is not None and self.cfg_orig.ic % 128 == 0:
-            # sparse-phase s2d taps: enumerate only the original taps,
-            # lane-slicing the phase groups — removes the dense
-            # lowering's zero-phase MAC inflation (16/9 for 3x3/s2;
-            # layout.pack_sparse_s2d_weights). Needs lane-aligned ic AND
-            # every column tap within the byte-shift range (|d| < 4 —
-            # the dense branch has an output-roll fallback, the sparse
-            # branch does not; r5 review finding), else stay dense.
-            taps = layout.sparse_s2d_taps(self.cfg_orig)
-            ds = [sin.col_off - sout.col_off + qj - cfg.pw
-                  for (_, _, _, qj) in taps]
-            if all(abs(d) < 4 for d in ds):
-                w3s = layout.pack_sparse_s2d_weights(
-                    np.asarray(wei_orig), cfg.ocp)
-                packed["w3"] = w3s
-                packed["corr0"] = layout.u8_shift_correction(w3s)
-                self.sparse_taps = taps
         # pad lanes must produce exactly -128: zero their scales so the
         # epilogue's f32 chain lands on round(0)-128 without any select
         packed["scale0"][cfg.oc:] = 0.0
@@ -932,14 +458,12 @@ class PackedConvOp:
         # forward (numpy cannot leak as a tracer) and safe to close over
         # in traced callers — see utils/opcache.py
         self._cache = OperandCache([packed[k] for k in keys])
-        cfg = dataclasses.replace(
-            cfg, row_tile=_pick_row_tile(cfg, sin, sout, pool2))
         self.cfg = cfg
         validate_packed_conv(cfg, sins, sout, ssum=sum_spec)
         if pool2:
-            # fused 2x2/s2 max pool in the epilogue: the conv output
-            # spec must satisfy the packed-pool legality so the halved
-            # result is itself a valid packed image
+            # 2x2/s2 max pool on the conv output: its spec must satisfy
+            # the packed-pool legality so the halved result is itself a
+            # valid packed image
             validate_packed_maxpool2(sout)
         self.pool2 = pool2
         self.sins = sins
@@ -953,7 +477,7 @@ class PackedConvOp:
 
     @property
     def sout_pooled(self) -> PackedSpec:
-        """Output spec of the fused pool2 epilogue (valid when pool2)."""
+        """Output spec after the pool2 step (valid when pool2)."""
         s = self.sout
         return PackedSpec(h=s.h // 2, w=s.w // 2, c=s.c, cp=s.cp,
                           halo=s.halo // 2, col_off=s.col_off // 2,
@@ -975,10 +499,8 @@ class PackedConvOp:
         sins = tuple(dataclasses.replace(s, h=h) for s in self.sins)
         sin = sins[0]
         sout = dataclasses.replace(self.sout, h=h)
-        cfg = dataclasses.replace(cfg, ih=h, oh=h)
-        cfg = dataclasses.replace(
-            cfg, row_tile=_pick_row_tile(cfg, sin, sout, self.pool2))
-        clone.cfg = cfg
+        clone.cfg = dataclasses.replace(cfg, ih=h, oh=h)
+        cfg = clone.cfg
         clone.sins, clone.sin, clone.sout = sins, sin, sout
         if self.ssum is not None:
             clone.ssum = dataclasses.replace(self.ssum, h=h)
@@ -1026,8 +548,6 @@ class PackedConvOp:
             operands = self._cache.for_call(arrs[0])
         if self.pool2:
             kw["pool2"] = True
-        if self.sparse_taps is not None:
-            kw["sparse_taps"] = self.sparse_taps
         return _packed_call(self.cfg, self.sins, self.sout,
                             arrs, *operands, **kw)
 
@@ -1052,7 +572,6 @@ class PackedConvOp:
         np.savez(path, __cfg__=dump_configs(**specs),
                  __n_sins__=np.int64(len(self.sins)),
                  __pool2__=np.bool_(self.pool2),
-                 __sparse__=np.bool_(self.sparse_taps is not None),
                  **arrs)
 
     @classmethod
@@ -1060,7 +579,6 @@ class PackedConvOp:
         import json
 
         from ..utils.persist import load_configs
-        from . import layout
         data = np.load(path, allow_pickle=False)
         n_sins = int(data["__n_sins__"])
         present = set(json.loads(str(data["__cfg__"])))
@@ -1076,11 +594,6 @@ class PackedConvOp:
         op.cfg_orig = cfgs.get("cfg_orig")
         op.ssum = cfgs.get("ssum")
         op.pool2 = bool(data["__pool2__"]) if "__pool2__" in data else False
-        # the tap descriptor is a pure function of cfg_orig; the flag
-        # records whether the saved w3/corr0 are the sparse pack
-        op.sparse_taps = (layout.sparse_s2d_taps(op.cfg_orig)
-                          if "__sparse__" in data and bool(data["__sparse__"])
-                          else None)
         op.sins = tuple(cfgs[f"sin{i}"] for i in range(n_sins))
         op.sin = op.sins[0]
         op.sout = cfgs["sout"]

@@ -1,16 +1,12 @@
-"""Roadmap fused ops: conv(+ReLU)+pooling and eltwise-sum+ReLU.
+"""Roadmap fused ops: pooling, conv(+ReLU)+pooling and eltwise-sum+ReLU.
 
 The reference lists these as planned (README.md:64-65) and documents their
 intended semantics via the MKL-DNN pipeline it builds in
 test/test_conv_relu_pooling.cc:313-391 (conv + optional eltwise-sum post-op
-+ relu + max/avg pooling over VGG/ResNet layer shapes). This module
-implements them TPU-native:
++ relu + max/avg pooling over VGG/ResNet layer shapes).
 
-* ``conv_relu_pool`` — the conv3x3 Pallas kernel's row-tile epilogue extends
-  with an in-VMEM pooling stage: conv output rows never round-trip to HBM
-  before pooling (the same fusion philosophy as the 3x3->1x1 chain).
-* ``eltwise_sum_relu`` — a bandwidth-bound fused add+relu Pallas kernel with
-  s32 accumulation and saturation for int dtypes.
+Pooling is ``lax.reduce_window`` and the eltwise sum one elementwise loop:
+both are bandwidth-bound, and XLA fuses them with their neighbours.
 """
 from __future__ import annotations
 
@@ -19,89 +15,23 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..config import ConvConfig, PoolConfig
 from ..types import dtype, round_mode
-from ..utils import env
-from ..utils.logger import check, check_eq
+from ..utils.logger import check_eq
 from ..utils.mathutil import conv_output_size
-from . import layout
-from .requant import requant, round_f32, saturate_to
+from .requant import round_f32, saturate_to
 
 
 # ---------------------------------------------------------------- pooling
 
-def _identity_pad(pc: PoolConfig, dt: dtype):
-    if pc.kind == "max":
-        return {dtype.u8: 0, dtype.s8: -128, dtype.s32: -(2 ** 31),
-                dtype.f32: -jnp.inf}[dt]
-    return 0
+def _max_identity(dt: dtype):
+    return {dtype.u8: 0, dtype.s8: -128, dtype.s32: -(2 ** 31),
+            dtype.f32: -np.inf}[dt]
 
 
-def _space_to_depth(x, sh, sw, pad_val):
-    """(n, h, w, c) -> (n, h/sh, w/sw, sh*sw*c), padding h/w up to stride
-    multiples with the pooling identity value. Runs in XLA (one relayout
-    copy); afterwards a stride-(sh,sw) pooling window becomes stride-1 row/
-    col shifts plus lane-group selects, which Mosaic lowers natively (its
-    strided-slice/gather paths do not support >2-D strided access)."""
-    n, h, w, c = x.shape
-    hp = -(-h // sh) * sh
-    wp = -(-w // sw) * sw
-    if hp != h or wp != w:
-        x = jnp.pad(x, ((0, 0), (0, hp - h), (0, wp - w), (0, 0)),
-                    constant_values=np.asarray(pad_val, dtype=x.dtype))
-    # row-parity-slice regroup (lane group g = (row%sh)*sw + (col%sw)):
-    # same data movement as the former reshape+6-D-transpose but every
-    # copy is lane-contiguous (see layout._s2d_regroup; the transpose
-    # form was the ResNet-stem maxpool bottleneck, scratch/stem_probe.py)
-    return layout._s2d_regroup(x, hp // sh, wp // sw, sh, sw, c, jnp)
-
-
-def _pool_kernel(x_ref, out_ref, *, pc: PoolConfig, dt: dtype,
-                 row_tile: int, emit_sums: bool = False):
-    """Pool over the space-to-depth grid; grid = (n, oh/row_tile).
-
-    x_ref block: (1, H2, W2, sh*sw*c) s2d input; out block
-    (1, row_tile, ow, c). Window tap (ki, kj) of the original grid lives at
-    s2d position (r + ki//sh, c + kj//sw), lane group (ki%sh)*sw + (kj%sw).
-    """
-    r0 = pl.program_id(1) * row_tile
-    c = out_ref.shape[-1]
-    is_int = dt != dtype.f32
-    acc = None
-    for ki in range(pc.kh):
-        qi, mi = divmod(ki, pc.sh)
-        rows = x_ref[0, pl.ds(r0 + qi, row_tile)]  # (row_tile, W2, sh*sw*c)
-        for kj in range(pc.kw):
-            qj, mj = divmod(kj, pc.sw)
-            grp = mi * pc.sw + mj
-            tap = rows[:, qj:qj + pc.ow, grp * c:(grp + 1) * c]
-            if pc.kind == "max" and not emit_sums:
-                # widen 8-bit types: Mosaic lacks 8-bit integer max
-                wide = tap.astype(jnp.int32) if dt in (dtype.s8, dtype.u8) \
-                    else tap
-                acc = wide if acc is None else jnp.maximum(acc, wide)
-            else:
-                t32 = tap.astype(jnp.int32) if is_int else tap
-                acc = t32 if acc is None else acc + t32
-    if pc.kind == "max":
-        out_ref[0] = acc.astype(dt.np)
-        return
-    if emit_sums:
-        out_ref[0] = acc
-        return
-    # avg_inc: fixed divisor kh*kw (padding included)
-    val = acc.astype(jnp.float32) / jnp.float32(pc.kh * pc.kw)
-    if is_int:
-        val = round_f32(val, pc.round)
-        out_ref[0] = saturate_to(val, dt)
-    else:
-        out_ref[0] = val.astype(jnp.float32)
-
-
-def _avg_exc_inv_counts(pc: PoolConfig) -> np.ndarray:
+def _avg_exc_counts(pc: PoolConfig) -> np.ndarray:
+    """Per-output count of window taps inside the image, (oh, ow) f32."""
     ones = np.zeros((pc.ih + pc.ph + pc.pb, pc.iw + pc.pw + pc.pr),
                     np.int32)
     ones[pc.ph:pc.ph + pc.ih, pc.pw:pc.pw + pc.iw] = 1
@@ -111,46 +41,30 @@ def _avg_exc_inv_counts(pc: PoolConfig) -> np.ndarray:
             hs = slice(ki, ki + (pc.oh - 1) * pc.sh + 1, pc.sh)
             ws = slice(kj, kj + (pc.ow - 1) * pc.sw + 1, pc.sw)
             cnt += ones[hs, ws]
-    return (1.0 / cnt).astype(np.float32)
-
-
-def _pick_pool_row_tile(oh: int) -> int:
-    for t in range(min(oh, 16), 0, -1):
-        if oh % t == 0:
-            return t
-    return 1
-
-
-def _pool_pallas(pc: PoolConfig, dt: dtype, x, pad_val, emit_sums):
-    """Shared driver: pad -> s2d -> Pallas kernel."""
-    n, ih, iw, c = x.shape
-    xp = jnp.pad(x, ((0, 0), (pc.ph, pc.pb), (pc.pw, pc.pr), (0, 0)),
-                 constant_values=np.asarray(pad_val, dtype=dt.np))
-    x2 = _space_to_depth(xp, pc.sh, pc.sw, pad_val)
-    _, h2, w2, c2 = x2.shape
-    row_tile = _pick_pool_row_tile(pc.oh)
-    grid = (n, pc.oh // row_tile)
-    out_dt = (jnp.int32 if dt != dtype.f32 else jnp.float32) if emit_sums \
-        else dt.np
-    kern = functools.partial(_pool_kernel, pc=pc, dt=dt, row_tile=row_tile,
-                             emit_sums=emit_sums)
-    return pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((n, pc.oh, pc.ow, c), out_dt),
-        grid=grid,
-        in_specs=[pl.BlockSpec((1, h2, w2, c2), lambda b, t: (b, 0, 0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, row_tile, pc.ow, c),
-                               lambda b, t: (b, t, 0, 0),
-                               memory_space=pltpu.VMEM),
-        compiler_params=env.tpu_compiler_params(("parallel", "parallel")),
-        interpret=env.interpret_kernels(),
-    )(x2)
+    return cnt.astype(np.float32)
 
 
 @functools.partial(jax.jit, static_argnames=("pc", "dt"))
 def _pool_call(pc: PoolConfig, dt: dtype, x):
-    return _pool_pallas(pc, dt, x, _identity_pad(pc, dt), emit_sums=False)
+    window = (1, pc.kh, pc.kw, 1)
+    strides = (1, pc.sh, pc.sw, 1)
+    pads = ((0, 0), (pc.ph, pc.pb), (pc.pw, pc.pr), (0, 0))
+    if pc.kind == "max":
+        init = np.asarray(_max_identity(dt), dtype=dt.np)
+        return jax.lax.reduce_window(x, init, jax.lax.max, window, strides,
+                                     pads)
+    is_int = dt != dtype.f32
+    xs = x.astype(jnp.int32) if is_int else x
+    sums = jax.lax.reduce_window(xs, np.zeros((), xs.dtype), jax.lax.add,
+                                 window, strides, pads)
+    if pc.kind == "avg_inc":
+        denom = np.float32(pc.kh * pc.kw)
+    else:
+        denom = _avg_exc_counts(pc)[None, :, :, None]
+    val = sums.astype(jnp.float32) / denom
+    if is_int:
+        return saturate_to(round_f32(val, pc.round), dt)
+    return val
 
 
 def pool(x, kind: str, kernel, stride, padding,
@@ -160,23 +74,7 @@ def pool(x, kind: str, kernel, stride, padding,
     dt = dtype.from_any(x.dtype)
     pc = PoolConfig.make(kind, (x.shape[1], x.shape[2]), kernel, stride,
                          padding, round)
-    if kind == "avg_exc":
-        return _pool_call_avg_exc(pc, dt, x, _avg_exc_inv_counts(pc))
     return _pool_call(pc, dt, x)
-
-
-@functools.partial(jax.jit, static_argnames=("pc", "dt"))
-def _pool_call_avg_exc(pc: PoolConfig, dt: dtype, x, inv_cnt):
-    """avg-exclude-padding: the Pallas kernel emits the window sums; the
-    per-pixel reciprocal-count multiply + round + saturate run as a fused
-    XLA epilogue (an (oh, ow)-plane broadcast inside the kernel would need
-    an unsupported minor-dim expand)."""
-    sums = _pool_pallas(pc, dt, x, 0, emit_sums=True)
-    val = sums.astype(jnp.float32) * inv_cnt[None, :, :, None]
-    if dt != dtype.f32:
-        val = round_f32(val, pc.round)
-        return saturate_to(val, dt)
-    return val.astype(jnp.float32)
 
 
 # ------------------------------------------- fused conv(+relu)+pool
@@ -186,15 +84,10 @@ def conv_relu_pool(src, wei, bia, stride, padding, *, dst_dtype,
                    conv_round_mode=round_mode.nearest,
                    pool_kind="max", pool_kernel=(2, 2), pool_stride=(2, 2),
                    pool_padding=(0, 0), pool_round_mode=round_mode.nearest):
-    """Fused conv+ReLU+pooling (the planned op at
-    test/test_conv_relu_pooling.cc:264-281).
-
-    Canonical 2x2/s2 downsampling geometries run as ONE Pallas kernel: the
-    conv row-tile is pooled in the epilogue before the HBM store
-    (ops/convpool.py — the conv output never exists in HBM). Other
-    geometries compose the conv and pool Pallas kernels under one jit.
-    """
-    from .convpool import ConvPoolOp, pool2_fusable
+    """Conv+ReLU+pooling (the planned op at
+    test/test_conv_relu_pooling.cc:264-281): the conv path followed by the
+    pooling window under one jit (ops/convpool.py)."""
+    from .convpool import ConvPoolOp
 
     src = np.asarray(src) if not hasattr(src, "dtype") else src
     wei = np.asarray(wei)
@@ -210,67 +103,29 @@ def conv_relu_pool(src, wei, bia, stride, padding, *, dst_dtype,
         conv0_round=conv_round_mode)
     pc = PoolConfig.make(pool_kind, (oh, ow), pool_kernel, pool_stride,
                          pool_padding, pool_round_mode)
-    if pool2_fusable(cfg, pc):
-        return ConvPoolOp(cfg, pc, wei, bia)(src)
-    from .conv import conv as conv_fn
-    conv_out = conv_fn(src, wei, bia, stride, padding, dst_dtype=dst_dtype,
-                       conv0_relu=conv_relu, conv0_scales=conv_scales,
-                       conv0_round_mode=conv_round_mode)
-    return pool(conv_out, pool_kind, pool_kernel, pool_stride, pool_padding,
-                pool_round_mode)
+    return ConvPoolOp(cfg, pc, wei, bia)(src)
 
 
 # ------------------------------------------- eltwise sum + relu
 
-def _sum_relu_kernel(a_ref, b_ref, out_ref, *, dt: dtype, with_relu: bool):
-    a, b = a_ref[...], b_ref[...]
-    if dt == dtype.f32:
-        s = a + b
-        out_ref[...] = jnp.maximum(s, 0.0) if with_relu else s
-        return
-    s = a.astype(jnp.int32) + b.astype(jnp.int32)
-    if dt == dtype.s32:
-        # s32 + s32 can exceed int32; the oracle saturates (ref.py widens to
-        # int64 then clips). Mosaic has no int64, so detect overflow via the
-        # classic sign identity — overflow iff the operands share a sign and
-        # the wrapped sum's sign differs — and select the saturation bound.
-        ovf = ((~(a ^ b)) & (a ^ s)) < 0
-        sat = jnp.where(a >= 0, jnp.int32(2**31 - 1), jnp.int32(-2**31))
-        s = jnp.where(ovf, sat, s)
-        if with_relu:
-            s = jnp.maximum(s, 0)
-        out_ref[...] = s
-    else:
-        if with_relu:
-            s = jnp.maximum(s, 0)
-        lo, hi = (-128, 127) if dt == dtype.s8 else (0, 255)
-        out_ref[...] = jnp.clip(s, lo, hi).astype(dt.np)
-
-
 @functools.partial(jax.jit, static_argnames=("dt", "with_relu"))
 def _sum_relu_call(dt: dtype, with_relu: bool, a, b):
-    # tile the NHWC arrays directly — flattening (..., c) to (m, c)
-    # forces XLA to materialize physical relayouts around the kernel
-    # when the merged dims are not tile-aligned (the concat lesson,
-    # docs/PERF.md round-5 concat section)
-    if a.ndim < 3:          # already 2-D (or 1-D): nothing to merge
-        a = a.reshape(1, 1, *a.shape)
-        return _sum_relu_call(dt, with_relu, a,
-                              b.reshape(a.shape)).reshape(b.shape)
-    n, h = a.shape[0], a.shape[1]
-    th = min(16, h)
-    spec = pl.BlockSpec((1, th) + tuple(a.shape[2:]),
-                        lambda b_, t: (b_, t) + (0,) * (a.ndim - 2),
-                        memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        functools.partial(_sum_relu_kernel, dt=dt, with_relu=with_relu),
-        out_shape=jax.ShapeDtypeStruct(a.shape, dt.np),
-        grid=(n, pl.cdiv(h, th)),
-        in_specs=[spec] * 2,
-        out_specs=spec,
-        compiler_params=env.tpu_compiler_params(("parallel", "parallel")),
-        interpret=env.interpret_kernels(),
-    )(a, b)
+    if dt == dtype.f32:
+        s = a + b
+        return jnp.maximum(s, 0.0) if with_relu else s
+    if dt == dtype.s32:
+        # s32 + s32 can exceed int32; the oracle saturates. Overflow iff
+        # the operands share a sign and the wrapped sum's sign differs.
+        s = a + b
+        ovf = ((~(a ^ b)) & (a ^ s)) < 0
+        s = jnp.where(ovf, jnp.where(a >= 0, jnp.int32(2 ** 31 - 1),
+                                     jnp.int32(-2 ** 31)), s)
+        return jnp.maximum(s, 0) if with_relu else s
+    s = a.astype(jnp.int32) + b.astype(jnp.int32)
+    if with_relu:
+        s = jnp.maximum(s, 0)
+    lo, hi = (-128, 127) if dt == dtype.s8 else (0, 255)
+    return jnp.clip(s, lo, hi).astype(dt.np)
 
 
 def eltwise_sum_relu(a, b, with_relu: bool = True):

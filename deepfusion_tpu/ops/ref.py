@@ -23,7 +23,7 @@ Numerical contract (from the reference JIT kernels, see SURVEY.md §4):
 Divergence note: the reference concat applies ReLU with lane-width quirks for
 s32 (vpmaxsw, 16-bit lanes — ``src/jit_concat_kernel.cc:45``) and u8
 (vpmaxsb signed-byte — ``:49``). Those are bugs outside the tested value
-range (|x| <= 16); this oracle and the TPU kernels implement *true* ReLU,
+range (|x| <= 16); this oracle and the ops implement *true* ReLU,
 which is bit-identical over the reference's own test ranges.
 """
 from __future__ import annotations

@@ -1,12 +1,11 @@
-"""In-kernel requantization epilogue (traced jnp, runs on the VPU).
+"""Requantization epilogue (traced jnp; runs inside the conv kernel and in
+plain XLA code alike).
 
 Implements the reference's store_output chain exactly
 (``src/jit_conv_kernel.cc:218-315``; contract in SURVEY.md §4):
 s32 acc -> f32 -> +bias -> *scale -> ReLU -> round -> saturating convert.
-
-All helpers operate on traced values inside a Pallas kernel. Mosaic cannot
-cast f32 directly to (u)int8, so integer converts route through int32 (the
-x86 sequence vcvtps2dq + vpmov[us]db is the same two-step dance).
+Integer converts of rounded values go f32 -> int32 -> 8-bit (the x86
+sequence vcvtps2dq + vpmov[us]db is the same two-step dance).
 """
 from __future__ import annotations
 
@@ -22,35 +21,6 @@ def round_f32(x, mode: round_mode):
     return jnp.floor(x)
 
 
-_MAGIC = 8388608.0  # 2^23: f32 spacing is exactly 1.0 in [2^23, 2^24)
-
-
-def _byte_pack(x_f32, dst: dtype):
-    """Exact f32 -> byte for x already clamped to dst's range.
-
-    Adding 2^23 (plus a byte-domain offset, below) leaves an f32 whose bit
-    pattern is 0x4B0000.. + v; if x carries a fraction the add itself
-    rounds it to-nearest-even (the hardware's f32 rounding), so this one
-    add replaces the whole round -> saturating-convert chain. Dramatically
-    cheaper on the VPU than lax.round + converts (measured +13.7pp of
-    roofline on the fused kernel) and bit-exact by the full-range
-    differential suite.
-
-    For s8 the -128..127 value v needs bit pattern (v mod 256): add
-    2^23 + 256 so the low byte of the f32 pattern is (v + 256) mod 256 ==
-    v mod 256 directly — the carry into byte 1 is discarded by the
-    truncating i32->i8 convert, so no XOR pass is needed (the integer
-    offset is exact in [2^23, 2^24) and does not change the fraction
-    rounding)."""
-    if dst == dtype.s8:
-        bits = jax.lax.bitcast_convert_type(
-            x_f32 + jnp.float32(_MAGIC + 256.0), jnp.int32)
-        return bits.astype(jnp.int8)
-    bits = jax.lax.bitcast_convert_type(x_f32 + jnp.float32(_MAGIC),
-                                        jnp.int32)
-    return bits.astype(jnp.uint8)
-
-
 def saturate_to(x_f32, dst: dtype):
     """Post-round convert with saturation; input must hold integral f32."""
     if dst == dtype.f32:
@@ -60,11 +30,12 @@ def saturate_to(x_f32, dst: dtype):
         x = jnp.clip(x_f32, -2147483648.0, 2147483647.0)
         return x.astype(jnp.int32)
     lo, hi = (-128.0, 127.0) if dst == dtype.s8 else (0.0, 255.0)
-    return _byte_pack(jnp.clip(x_f32, lo, hi), dst)
+    return jnp.clip(x_f32, lo, hi).astype(jnp.int32).astype(dst.np)
 
 
 def requant(acc_s32, bias_f32, scale_f32, with_relu: bool,
-            mode: round_mode, dst: dtype, sum_term=None):
+            mode: round_mode, dst: dtype, sum_term=None,
+            round_fn=round_f32):
     """Full epilogue. bias_f32 may be None; bias/scale broadcast over rows.
 
     ReLU is forced for u8 destinations (``src/jit_conv_kernel.cc:264``).
@@ -77,11 +48,14 @@ def requant(acc_s32, bias_f32, scale_f32, with_relu: bool,
 
     MKL-DNN adds the sum in f32 *before* rounding, but that order is not
     bit-reproducible on XLA: the compiler legally keeps excess precision
-    (fma-contracts mul+add, --xla_allow_excess_precision defaults on and
-    the TPU compile service forces it), flipping values at rounding
+    (fma-contracts mul+add, --xla_allow_excess_precision defaults on),
+    flipping values at rounding
     boundaries. Integer-domain joins are exact on every backend. For f32
     destinations the sum stays an f32 add (no rounding step exists) and
     comparisons are tolerance-based anyway.
+
+    round_fn(x, mode): the rounding primitive (inside a Triton kernel,
+    where no round primitive exists, ``ops.conv._kround``).
     """
     x = acc_s32.astype(jnp.float32)
     if bias_f32 is not None:
@@ -93,16 +67,7 @@ def requant(acc_s32, bias_f32, scale_f32, with_relu: bool,
             x = jnp.maximum(x, 0.0)
         if dst == dtype.f32:
             return x
-        if dst in (dtype.u8, dtype.s8) and mode == round_mode.nearest:
-            # round-then-saturate == saturate-then-round (round is
-            # monotone and fixes the integer bounds), so the byte pack's
-            # magic add performs the rounding and the whole tail is
-            # clamp + _byte_pack
-            lo, hi = (-128.0, 127.0) if dst == dtype.s8 else (0.0, 255.0)
-            x = jnp.minimum(x, hi) if relu and lo <= 0.0 \
-                else jnp.clip(x, lo, hi)
-            return _byte_pack(x, dst)
-        return saturate_to(round_f32(x, mode), dst)
+        return saturate_to(round_fn(x, mode), dst)
     if dst == dtype.f32:
         x = x + sum_term
         if relu:
@@ -110,37 +75,26 @@ def requant(acc_s32, bias_f32, scale_f32, with_relu: bool,
         return x
     # integer dst: round both addends, join exactly, then relu/saturate
     # (relu commutes with the monotone round; round(0) == 0)
-    x = round_f32(x, mode) + round_f32(sum_term, mode)
+    x = round_fn(x, mode) + round_fn(sum_term, mode)
     if relu:
         x = jnp.maximum(x, 0.0)
     return saturate_to(x, dst)
 
 
 def requant_to_u8_centered(acc_s32, bias_f32, scale_f32, mode: round_mode,
-                           zero_mask=None, sum_rounded=None, pool_fn=None):
+                           zero_mask=None, sum_rounded=None,
+                           round_fn=round_f32):
     """Fused-path epilogue: requantize to u8 then shift to s8 (x - 128) for
-    the next int8 matmul. ReLU is always applied (``:275-277`` — the fused
+    the next int8 product. ReLU is always applied (``:275-277`` — the fused
     intermediate is always u8). Returns int8 values in [-128, 127].
 
     zero_mask (optional, f32 of 0.0/1.0, broadcastable): slots multiplied
-    by 0.0 come out as exactly -128 (packed-domain padding). A multiply
-    folded into the f32 chain is dramatically cheaper on the VPU than an
-    int8 select at store time. The lower saturation bound is free: ReLU
-    already guarantees x >= 0 and rounding preserves it.
+    by 0.0 come out as exactly -128 (packed-domain padding).
 
     sum_rounded (optional, f32 holding integral values): pre-rounded
     eltwise-sum operand, joined in the exact integer domain after this
     stage's own round — the same order as ``requant``'s sum path, so the
-    packed-domain sum post-op is bit-identical to the dense one. The main
-    term must be rounded *before* the join, so the magic-add shortcut
-    (which rounds and extracts in one step) does not apply here.
-
-    pool_fn (optional): shape-reducing max pool applied to the FINAL
-    clamped f32 values right before the byte pack. In the u8 value
-    domain (>= 0 after ReLU; pad slots hold 0.0 = u8 zero) the f32 max
-    equals the post-pack s8 max (the pack is monotone), so pooling here
-    is bit-identical to pooling the packed output — and Mosaic has no
-    int8 max anyway. Also shrinks the pack work by the pool factor.
+    packed-domain sum post-op is bit-identical to the dense one.
     """
     x = acc_s32.astype(jnp.float32)
     if bias_f32 is not None:
@@ -148,49 +102,9 @@ def requant_to_u8_centered(acc_s32, bias_f32, scale_f32, mode: round_mode,
     x = x * scale_f32
     if zero_mask is not None:
         x = x * zero_mask
+    x = round_fn(x, mode)
     if sum_rounded is not None:
-        # round both addends, join exactly, then relu/saturate (matches
-        # requant()'s integer-domain join; relu commutes with the
-        # monotone round and round(0) == 0)
-        x = round_f32(x, mode) + sum_rounded
-        x = jnp.maximum(x, 0.0)
-        x = jnp.minimum(x, 255.0)
-        if pool_fn is not None:
-            x = pool_fn(x)
-        # magic add with the -128 shift folded into the constant: low
-        # byte of the pattern is (v + 128) mod 256 == v ^ 128, the
-        # centered-s8 encoding, and the truncating convert keeps it
-        # (see _byte_pack)
-        bits = jax.lax.bitcast_convert_type(
-            x + jnp.float32(_MAGIC + 128.0), jnp.int32)
-        return bits.astype(jnp.int8)
-    x = jnp.maximum(x, 0.0)
-    if mode == round_mode.nearest:
-        # Magic-number RNE + byte extract, saving VPU passes over the
-        # round/sub/min/convert chain. Exactness argument:
-        #   * min(round(x), 255) == round(min(x, 255)) — round is monotone
-        #     and fixes 255, so the clamp commutes to before the round;
-        #   * for v in [0, 255], the f32 sum (2^23 + 128) + x rounds the
-        #     fraction with the hardware's RNE (the rounding we need; the
-        #     integer 128 offset is exact in [2^23, 2^24) and does not
-        #     touch the fraction) and its bit pattern's low byte is
-        #     (v + 128) mod 256 == v ^ 128 — the centered-s8 encoding —
-        #     which the truncating i32->i8 convert keeps, so the -128
-        #     shift costs no XOR pass.
-        # Verified bit-exact vs the reference chain over every acc value
-        # by the full-range differential tests (tests/test_packed.py,
-        # tests/test_fused.py).
-        x = jnp.minimum(x, 255.0)
-        if pool_fn is not None:
-            x = pool_fn(x)
-        bits = jax.lax.bitcast_convert_type(
-            x + jnp.float32(_MAGIC + 128.0), jnp.int32)
-        return bits.astype(jnp.int8)
-    # round-down mode: floor, then the folded saturate+shift (x integral
-    # and >= 0, so -128 is exact in f32 and one min replaces the clamp
-    # pair; the i32->i8 cast needs no saturation)
-    x = round_f32(x, mode)
-    if pool_fn is not None:
-        x = pool_fn(x)
-    x = jnp.minimum(x - 128.0, 127.0)
+        # relu commutes with the monotone round and round(0) == 0
+        x = x + sum_rounded
+    x = jnp.clip(x, 0.0, 255.0) - 128.0
     return x.astype(jnp.int32).astype(jnp.int8)

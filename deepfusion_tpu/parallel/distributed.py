@@ -2,9 +2,9 @@
 
 The reference has no distributed layer (SURVEY.md §2: collective backend
 ABSENT; topology handled by external CPU pinning in run_benchmark.sh:5-17).
-This module is the TPU-native equivalent demanded by BASELINE.md: the jax
-distributed runtime rides DCN between hosts while collectives inside jitted
-code ride ICI.
+This module is the equivalent demanded by BASELINE.md: the jax distributed
+runtime connects the host processes, and collectives inside jitted code go
+to NCCL.
 """
 from __future__ import annotations
 
@@ -15,22 +15,20 @@ from ..utils.mathutil import balance211
 
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None):
-    """Initialize the multi-host runtime (no-op on a single host).
+    """Initialize the multi-host runtime (no-op for one process).
 
-    Wraps ``jax.distributed.initialize``; with no arguments, auto-detects
-    from the TPU environment (the standard multi-host v5e entrypoint).
+    Wraps ``jax.distributed.initialize``. Nothing in the environment
+    describes the cluster, so the coordinator address, process count and
+    this process's index are required; a failed init raises.
     """
-    if num_processes is not None and num_processes <= 1:
+    if num_processes is None or num_processes <= 1:
         info("single process; skipping distributed init")
         return
-    try:
-        jax.distributed.initialize(coordinator_address=coordinator_address,
-                                   num_processes=num_processes,
-                                   process_id=process_id)
-        info("distributed runtime up: process %d/%d",
-             jax.process_index(), jax.process_count())
-    except Exception as e:  # single-host dev fallback
-        info("distributed init skipped: %s", e)
+    jax.distributed.initialize(coordinator_address=coordinator_address,
+                               num_processes=num_processes,
+                               process_id=process_id)
+    info("distributed runtime up: process %d/%d",
+         jax.process_index(), jax.process_count())
 
 
 def local_batch_slice(global_batch: int):

@@ -2,7 +2,7 @@
 
 The reference is single-process OpenMP (SURVEY.md §2, parallelism table):
 its only parallelism is intra-op threading over batch x spatial
-(``src/op_conv.cc:39-47``). The TPU scale-out axes here are the idiomatic
+(``src/op_conv.cc:39-47``). The scale-out axes here are the idiomatic
 replacements demanded by BASELINE.md's north star:
 
   dp — data (batch) parallelism        [reference analogue: none]

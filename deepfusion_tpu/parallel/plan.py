@@ -3,8 +3,7 @@
 One builder shared by the driver's multi-chip dryrun
 (``__graft_entry__.dryrun_multichip``) and the scaling benchmark
 (``bench.py --op scaling --mesh dp=..,sp=..,tp=..``), so every mesh the
-dryrun proves compiles is also measurable by the throughput harness
-(VERDICT r4 weak #5):
+dryrun proves compiles is also measurable by the throughput harness:
 
   stage 1 — dp x sp sharded fused conv3x3+1x1 (u8 -> u8): batch over
             ``dp``, H over ``sp`` with the overlap-scheduled ppermute
@@ -12,17 +11,17 @@ dryrun proves compiles is also measurable by the throughput harness
   stage 2 — tp-sharded fused conv: conv0 oc over ``tp``, the 1x1's s32
             contraction completed by ``psum_scatter`` BEFORE the
             nonlinear requant (``parallel/shard.tp_fused_conv``);
-  stage 3 — dp x sp sharded two-layer megakernel with fused pool2
-            epilogue (``ops/mega.PackedConvPairOp`` under ``sp_packed``:
-            packed-domain ppermute halo exchange overlapped with the
-            interior tiles, composed with dp batch sharding), fed by a
+  stage 3 — dp x sp sharded conv pair + pool2 (``ops/mega.
+            PackedConvPairOp`` under ``sp_packed``: packed-domain ppermute
+            halo exchange overlapped with the interior rows, composed with
+            dp batch sharding), fed by a
             traced model-boundary ``pack_image_sharded`` and unpacked to
             a dense u8 image at the end so the plan's output is
             mesh-shape-invariant.
 
 The reference has no distributed execution at all (SURVEY.md §2); this
-composition is the TPU-native scale-out demanded by BASELINE.md's north
-star, with every stage bit-exact vs its single-device op.
+composition is the scale-out demanded by BASELINE.md's north star, with
+every stage bit-exact vs its single-device op.
 """
 from __future__ import annotations
 
@@ -83,8 +82,8 @@ def three_stage_plan(mesh, mb: int, hw: int, ic: int, oc: int, oc1: int,
     stage2 = tp_fused_conv(cfg2, wei2, None, wei21, None, mesh,
                            wire="reduce_scatter")
 
-    # stage 3: dp x sp sharded pool2 megakernel (sp_packed halo exchange
-    # in the packed domain; roll-free erosion sin: halo_out + ph_a + ph_b)
+    # stage 3: dp x sp sharded conv pair + pool2 (sp_packed halo exchange
+    # in the packed domain; erosion sin: halo_out + ph_a + ph_b)
     wei3a = rng.integers(-m, m + 1, (oc1, oc1, 3, 3)).astype(np.int8)
     wei3b = rng.integers(-m, m + 1, (oc1, oc1, 3, 3)).astype(np.int8)
     cfg3 = ConvConfig.make(

@@ -1,7 +1,7 @@
 """Sharded execution wrappers: DP / TP / SP over a jax Mesh.
 
-TPU-native scale-out layer (SURVEY.md §2 parallelism checklist — all ABSENT
-in the single-node reference; §7 maps each to its TPU equivalent):
+Scale-out layer (SURVEY.md §2 parallelism checklist — all ABSENT in the
+single-node reference; §7 maps each to its accelerator equivalent):
 
 * ``dp_shard``     — batch sharding (pure data parallelism, no collectives).
 * ``tp_fused_conv``— conv0 output channels (and their scales/bias) sharded
@@ -10,7 +10,7 @@ in the single-node reference; §7 maps each to its TPU equivalent):
   reduction BEFORE the (nonlinear) requantization — int32 adds commute, so
   the result is bit-identical to single-device execution.
 * ``sp_conv``      — spatial H sharding with a 1-row halo exchange via
-  ``jax.lax.ppermute`` (ICI neighbor exchange), the image analogue of
+  ``jax.lax.ppermute`` (neighbor exchange), the image analogue of
   ring-attention's neighbor passing. Bit-exact: halo rows replace the
   zero-padding only at interior shard boundaries.
 
@@ -26,9 +26,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..config import ConvConfig, replace_geometry
+from ..config import ConvConfig, pad_channels
 from ..ops import layout
-from ..ops.conv import _conv_call, _conv_call_s2d, conv_fused_acc1
+from ..ops.conv import _conv_call, conv_fused_acc1
 from ..ops.requant import requant
 from ..utils.logger import check, check_eq
 
@@ -46,12 +46,8 @@ def _rebatched_op(op, bs: int):
     from ..ops.mega import PackedConvPairOp
     from ..ops.packed import PackedConvOp
     clone = copy.copy(op)
-    if isinstance(op, ConvOp):
+    if isinstance(op, (ConvOp, ConvPoolOp)):
         clone.cfg = _rebatch(op.cfg, bs)
-        clone.cfg2 = None if op.cfg2 is None else _rebatch(op.cfg2, bs)
-    elif isinstance(op, ConvPoolOp):
-        clone.cfg = _rebatch(op.cfg, bs)
-        clone.cfg_orig = _rebatch(op.cfg_orig, bs)
     elif isinstance(op, (PackedConvOp, PackedConvPairOp)):
         pass                    # batch derived from the array shape
     else:
@@ -63,10 +59,10 @@ def dp_shard(op, mesh: Mesh, axis: str = "dp"):
     """Wrap an op so the batch dim is sharded over `axis`.
 
     Supports every repeated-submission op family — ``ConvOp`` (incl.
-    strided s2d and sum post-op configs), ``ConvPoolOp``,
+    strided and sum post-op configs), ``ConvPoolOp``,
     ``PackedConvOp`` (incl. multi-input branch merges and packed sum
-    operands), and the ``PackedConvPairOp`` megakernel. Weights are
-    replicated; no collectives — the TPU analogue of the reference's
+    operands), and ``PackedConvPairOp``. Weights are
+    replicated; no collectives — the analogue of the reference's
     OpenMP split over the batch dim (src/op_conv.cc:39-47). The
     returned callable takes the op's usual arguments (``src`` and, for
     sum configs, ``sum_src``), each sharded on the batch dim.
@@ -116,7 +112,7 @@ def _rebatch(cfg: ConvConfig, bs: int) -> ConvConfig:
 # ------------------------------------------------------------------ TP
 
 def tp_wire_bytes(cfg: ConvConfig, n_shard: int, wire: str) -> int:
-    """Analytic per-device ICI bytes for one tp_fused_conv call.
+    """Analytic per-device interconnect bytes for one tp_fused_conv call.
 
     Ring cost model: an all-reduce (psum) of B bytes moves 2*(N-1)/N * B
     per device (reduce_scatter + all_gather of the same dtype); the
@@ -147,8 +143,7 @@ def tp_fused_conv(cfg: ConvConfig, wei, bia, wei1x1, bia1x1,
       over the oc1x1 lane dim, requant the local lane shard (bias1/scale1
       shard with it), all_gather the narrow u8/s8 result — (N-1)/N*(4+1)
       bytes/elem on the wire and a 1/N share of the requant work, vs the
-      psum wire's 2*(N-1)/N*4 bytes/elem + full-width replicated requant
-      (VERDICT r2 weak #5). See tp_wire_bytes.
+      psum wire's 2*(N-1)/N*4 bytes/elem + full-width replicated requant. See tp_wire_bytes.
     wire = "psum": all-reduce the full s32 accumulator, requant replicated
       — kept as the bit-exactness oracle.
 
@@ -167,12 +162,8 @@ def tp_fused_conv(cfg: ConvConfig, wei, bia, wei1x1, bia1x1,
     oc_l = cfg.oc // n_shard
 
     import dataclasses
-    from ..config import LANES
-    from ..utils.mathutil import div_up
     # local config: conv0 with oc_l channels, emitting the s32 partial acc1
-    local_cfg = dataclasses.replace(
-        cfg, oc=oc_l,
-        ocp=max(div_up(oc_l, LANES) * LANES, LANES))
+    local_cfg = dataclasses.replace(cfg, oc=oc_l, ocp=pad_channels(oc_l))
 
     wei = np.asarray(wei)
     w1 = np.asarray(wei1x1)
@@ -243,10 +234,9 @@ def tp_fused_conv(cfg: ConvConfig, wei, bia, wei1x1, bia1x1,
     return jax.jit(run)
 
 
-# TP local step = the flagship Pallas kernel in emit_acc1 mode
-# (ops/conv.py conv_fused_acc1): the u8-intermediate + partial 1x1 all run
-# on the MXU in one program; only the s32 partial accumulator crosses into
-# the psum. (Round 1 used an XLA composition here — VERDICT r1 #5.)
+# TP local step = the flagship conv in emit_acc1 mode (ops/conv.py
+# conv_fused_acc1): the u8 intermediate and the partial 1x1 product stay in
+# one kernel; only the s32 partial accumulator crosses into the psum.
 _conv_call_acc1 = conv_fused_acc1
 
 
@@ -254,9 +244,9 @@ def tp_packed_fused(op, mesh: Mesh, axis: str = "tp",
                     wire: str = "reduce_scatter"):
     """Tensor-parallel PACKED fused conv: conv0 oc sharded over `axis`.
 
-    The packed-domain twin of ``tp_fused_conv`` (round-5: completes the
+    The packed-domain twin of ``tp_fused_conv`` (completes the
     parallel x op-family matrix — dp/sp already cover every packed
-    family). Each shard runs the packed kernel in ``emit_acc1`` mode on
+    family). Each shard runs the packed conv in ``emit_acc1`` mode on
     its conv0 lane slice: conv0 -> requant-to-u8 (per-shard scales) ->
     partial 1x1 s32 accumulator. The collective completes the int32
     contraction BEFORE the nonlinear final requant (the TP-correctness
@@ -342,7 +332,7 @@ def tp_packed_fused(op, mesh: Mesh, axis: str = "tp",
                  # placeholders so the kernel's operand list lines up
                  ops_d["corr1"][0] * 0.0, ops_d["corr1"][0] * 0.0)
         acc1 = _packed_call(cfg_l, op.sins, sout, (x,), *ops_l,
-                            sparse_taps=op.sparse_taps, emit_acc1=True)
+                            emit_acc1=True)
         if wire == "psum":
             acc1 = jax.lax.psum(acc1, axis)
             return final(acc1, bias1, scale1)
@@ -363,40 +353,98 @@ def tp_packed_fused(op, mesh: Mesh, axis: str = "tp",
 
 # ------------------------------------------------------------------ SP
 
+def _sp_stage(local, axis: str, n_shard: int, h_loc: int):
+    """The per-shard body of one spatially sharded PackedConvOp (see
+    sp_packed): exchange halo rows, compute the interior output rows from
+    the pre-exchange arrays and the boundary rows from the exchanged
+    ones, stitch."""
+    from ..ops.packed import _packed_call
+
+    cfg, sins_l, sout_l = local.cfg, tuple(local.sins), local.sout
+    halo, iwp = sins_l[0].halo, sins_l[0].iwp
+    rows_out = sout_l.rows
+    # output row j reads input rows [j + delta - ph, j + delta - ph + kh):
+    # rows [r_top, r_bot) never touch the exchanged halo bands
+    delta = halo - sout_l.halo
+    r_top = min(max(halo - delta + cfg.ph, 0), rows_out)
+    r_bot = max(min(halo + h_loc - delta + cfg.ph - cfg.kh + 1, rows_out),
+                r_top)
+    if local.pool2:                 # pooled row ranges must pair rows
+        r_top = min(r_top + r_top % 2, rows_out)
+        r_bot = max(r_bot - r_bot % 2, r_top)
+
+    def call(arrs, rows, sum_arr):
+        kw = {}
+        if local.ssum is not None:
+            kw = dict(ssum=local.ssum, sum_arr=sum_arr)
+        return _packed_call(cfg, sins_l, sout_l, arrs,
+                            *local._cache.for_call(arrs[0]),
+                            pool2=local.pool2, rows=rows, **kw)
+
+    def stage(xs, sum_arr=None):
+        idx = jax.lax.axis_index(axis)
+        fwd = [(i, (i + 1) % n_shard) for i in range(n_shard)]
+        bwd = [(i, (i - 1) % n_shard) for i in range(n_shard)]
+        # 1. halo slabs in flight first, so the transfers can overlap the
+        #    interior conv (trace order is the overlap contract)
+        halos = [(jax.lax.ppermute(
+            x[:, h_loc * iwp:(h_loc + halo) * iwp], axis, fwd),
+                  jax.lax.ppermute(x[:, halo * iwp:2 * halo * iwp], axis,
+                                   bwd)) for x in xs]
+
+        def land(x, hl):
+            top, bot = hl
+            top = jnp.where(idx == 0, jnp.full_like(top, -128), top)
+            bot = jnp.where(idx == n_shard - 1, jnp.full_like(bot, -128),
+                            bot)
+            return (x.at[:, :halo * iwp].set(top)
+                    .at[:, (halo + h_loc) * iwp:].set(bot))
+
+        # 2. interior rows on the pre-exchange arrays
+        mid = call(xs, (r_top, r_bot), sum_arr) if r_bot > r_top else None
+        # 3. boundary rows once the halos land
+        xs_ex = tuple(land(x, hl) for x, hl in zip(xs, halos))
+        if mid is None:
+            return call(xs_ex, (0, rows_out), sum_arr)
+        parts = [call(xs_ex, (0, r_top), sum_arr)] if r_top else []
+        parts.append(mid)
+        if r_bot < rows_out:
+            parts.append(call(xs_ex, (r_bot, rows_out), sum_arr))
+        # 4. stitch the output rows
+        return jnp.concatenate(parts, axis=1) if len(parts) > 1 else mid
+
+    return stage
+
+
 def sp_packed(op, mesh: Mesh, axis: str = "sp",
               dp_axis: Optional[str] = None):
     """Spatially-sharded PACKED-domain conv: H split over `axis`, halo
     rows exchanged via ``jax.lax.ppermute``, overlapped with interior
-    compute (VERDICT r4 #5 — the packed layout *materializes* its halo
-    rows, so neighbor shards literally write each other's halo slabs).
+    compute (the packed layout *materializes* its halo rows, so neighbor
+    shards literally write each other's halo slabs).
 
     Distributed format: the input is ``pack_image_sharded``'s
     concatenation of per-shard local packed images (each a valid packed
     image of height ``h/n_shard`` with its own halo band), sharded on
-    the flat-row dim. The wrapper:
+    the flat-row dim. Per conv, the wrapper:
 
       1. ppermutes each shard's top/bottom image rows into its
          neighbors' halo bands (outer shards keep the true -128 pad);
-      2. runs the local op's INTERIOR row tiles — whose input windows
-         provably never touch exchanged rows — on the *pre-exchange*
-         array, so the Pallas call has no data dependence on the
-         permutes and XLA hides the ICI latency under the MXU bulk
-         (the sp_conv overlap schedule, applied in the packed domain);
-      3. runs the two boundary tiles on narrow row slices of the
-         exchanged array (``t_range``/``row0_off`` kernel re-basing);
-      4. concatenates the output tiles.
+      2. computes the output rows whose input windows never touch the
+         halo bands from the *pre-exchange* array, so that conv has no
+         data dependence on the permutes and can overlap them;
+      3. computes the boundary output rows from the exchanged array;
+      4. concatenates the output rows.
 
     Supports ``PackedConvOp`` (incl. sum post-ops — the sum operand
     shards in the same local format and needs no exchange, it is read
-    at output rows only — and the pool2 epilogue) and the
-    ``PackedConvPairOp`` megakernel. Output is in the same sharded
-    local-packed format (pooled spec when pool2). Bit-exact vs the
-    single-device op on the image rows (tests/test_parallel.py).
+    at output rows only — and the pool2 step) and ``PackedConvPairOp``
+    (one exchange per layer). Output is in the same sharded local-packed
+    format (pooled spec when pool2). Bit-exact vs the single-device op on
+    the image rows (tests/test_parallel.py).
     """
-    import dataclasses
-
-    from ..ops.mega import PackedConvPairOp, _pair_call, _pair_offs
-    from ..ops.packed import PackedConvOp, _boundary_offs, _packed_call
+    from ..ops.mega import PackedConvPairOp
+    from ..ops.packed import PackedConvOp
 
     is_pair = isinstance(op, PackedConvPairOp)
     check(is_pair or type(op) is PackedConvOp,
@@ -407,135 +455,17 @@ def sp_packed(op, mesh: Mesh, axis: str = "sp",
           f"image height {op.sin.h} not divisible by {axis}={n_shard}")
     h_loc = op.sin.h // n_shard
     local = op.reheight(h_loc)
-    sin_l, sout_l = local.sin, local.sout
-    halo, iwp = sin_l.halo, sin_l.iwp
-    rows_in = sin_l.rows
-
-    if is_pair:
-        cfg_run = local.cfg_b
-        T = cfg_run.row_tile
-        off_top, off_bot, s2u_f, s1u_f, T2, L = _pair_offs(
-            local.cfg_a, cfg_run, sin_l, local.smid, sout_l, T)
-        # boundary image rows of one shard depend on ph_a + ph_b neighbor
-        # rows: the halo band must materialize at least that many, and
-        # the geometry must be ROLL-FREE erosion (off == 0) so no clamp
-        # wrap can land garbage in the interior-widened intermediate rows
-        check(halo >= local.cfg_a.ph + local.cfg_b.ph
-              and off_top == 0 and off_bot == 0,
-              "sp_packed pair requires roll-free erosion geometry: "
-              "sin.halo >= ph_a + ph_b and "
-              "sin.halo - sout.halo >= ph_a + ph_b "
-              "(construct the pair with a deeper sin halo, e.g. "
-              "sin.halo = halo_out + ph_a + ph_b)")
-
-        def win0(t):
-            return s1u_f(t)
-    else:
-        cfg_run = local.cfg
-        T = cfg_run.row_tile
-        L = T + cfg_run.kh - 1
-        off_top, off_bot = _boundary_offs(cfg_run, sin_l, sout_l)
-        delta = sin_l.halo - sout_l.halo
-
-        def win0(t):
-            return t * T + delta - cfg_run.ph
-
-    def win(t):
-        s = win0(t)
-        if off_top or off_bot:
-            s = min(max(s, 0), rows_in - L)
-        return s, s + L
-
-    nt = sout_l.rows // T
-
-    def touches_exchange(t):
-        a, b = win(t)
-        return a < halo or b > halo + h_loc
-
-    btiles = [t for t in range(nt) if touches_exchange(t)]
-    w0t, w0b = win(0)[0], win(nt - 1)[0]
-    # the overlap split needs: boundary == the two extreme tiles, an
-    # interior to hide the permutes under, and slice specs with
-    # nonnegative doctored heights
-    can_split = (btiles == [0, nt - 1] and nt >= 3
-                 and L - 2 * halo >= 0)
+    layers = [local.a, local.b] if is_pair else [local]
+    stages = [_sp_stage(lay, axis, n_shard, h_loc) for lay in layers]
     has_sum = (not is_pair) and op.ssum is not None
-    pool2 = local.pool2
-    n_in = 1 if is_pair else len(local.sins)
-
-    def call(arrs, sins_use, tr, r0, sum_arr=None, mid_bounds=None):
-        ops_ = tuple(local._cache.for_call(arrs[0]))
-        if is_pair:
-            return _pair_call(
-                local.cfg_a, local.cfg_b, sins_use[0], local.smid,
-                sout_l, arrs[0], *ops_, split_kh=local.split_kh,
-                pool2=pool2, grid_order="bt", msplit=local.msplit,
-                t_range=tr, nt_tot=nt, row0_off=r0,
-                offs=(off_top, off_bot), mid_bounds=mid_bounds)
-        kw = {}
-        if has_sum:
-            kw = dict(ssum=local.ssum, sum_arr=sum_arr)
-        return _packed_call(local.cfg, sins_use, sout_l, arrs, *ops_,
-                            pool2=pool2, t_range=tr, nt_tot=nt,
-                            row0_off=r0, **kw)
-
-    sins_l = (sin_l,) if is_pair else tuple(local.sins)
-    sins_slice = tuple(dataclasses.replace(s, h=L - 2 * halo)
-                       for s in sins_l) if can_split else None
+    n_in = len(local.sins) if not is_pair else 1
 
     def local_fn(*args):
         xs, rest = args[:n_in], args[n_in:]
-        sum_l = rest[0] if has_sum else None
-        idx = jax.lax.axis_index(axis)
-        fwd = [(i, (i + 1) % n_shard) for i in range(n_shard)]
-        bwd = [(i, (i - 1) % n_shard) for i in range(n_shard)]
-        mid_bounds = None
-        if is_pair:
-            # widen the intermediate image-row mask by ph_b on
-            # shard-interior sides: layer b there must read layer a's
-            # computed neighbor rows, not conv padding
-            ph_b = local.cfg_b.ph
-            lo = local.smid.halo - jnp.where(idx > 0, ph_b, 0)
-            hi = (local.smid.halo + h_loc
-                  + jnp.where(idx < n_shard - 1, ph_b, 0))
-            mid_bounds = jnp.stack([lo, hi])
-
-        # 1. halo slabs IN FLIGHT: issue every ppermute FIRST, before
-        #    the interior kernel is traced, so the ICI transfers start
-        #    ahead of the MXU bulk even under a conservative scheduler
-        #    (trace order is the overlap contract, as in sp_conv)
-        def start_exchange(x):
-            top_halo = jax.lax.ppermute(
-                x[:, h_loc * iwp:(h_loc + halo) * iwp], axis, fwd)
-            bot_halo = jax.lax.ppermute(
-                x[:, halo * iwp:2 * halo * iwp], axis, bwd)
-            return top_halo, bot_halo
-
-        def land_exchange(x, halos):
-            top_halo, bot_halo = halos
-            top_halo = jnp.where(idx == 0,
-                                 jnp.full_like(top_halo, -128), top_halo)
-            bot_halo = jnp.where(idx == n_shard - 1,
-                                 jnp.full_like(bot_halo, -128), bot_halo)
-            return (x.at[:, :halo * iwp].set(top_halo)
-                     .at[:, (halo + h_loc) * iwp:].set(bot_halo))
-
-        in_flight = [start_exchange(x) for x in xs]
-        if not can_split:
-            xs_ex = tuple(land_exchange(x, h) for x, h in
-                          zip(xs, in_flight))
-            return call(xs_ex, sins_l, (0, nt), 0, sum_l, mid_bounds)
-        # 2. interior tiles on the PRE-exchange arrays (no dependence on
-        #    the permutes -> overlaps the ICI latency)
-        mid = call(xs, sins_l, (1, nt - 1), 0, sum_l, mid_bounds)
-        # 3. boundary tiles on narrow slices of the exchanged arrays
-        xs_ex = tuple(land_exchange(x, h) for x, h in zip(xs, in_flight))
-        top = call(tuple(x[:, w0t * iwp:(w0t + L) * iwp] for x in xs_ex),
-                   sins_slice, (0, 1), w0t, sum_l, mid_bounds)
-        bot = call(tuple(x[:, w0b * iwp:(w0b + L) * iwp] for x in xs_ex),
-                   sins_slice, (nt - 1, nt), w0b, sum_l, mid_bounds)
-        # 4. stitch the output tiles
-        return jnp.concatenate([top, mid, bot], axis=1)
+        y = stages[0](xs, rest[0] if has_sum else None)
+        for stage in stages[1:]:
+            y = stage((y,))
+        return y
 
     img_spec = P(dp_axis, axis, None)
     n_args = n_in + (1 if has_sum else 0)
@@ -553,9 +483,9 @@ def sp_packed(op, mesh: Mesh, axis: str = "sp",
         extra = (jnp.asarray(sum_src),) if has_sum else ()
         return jfn(*srcs, *extra)
 
-    run.local_spec = sin_l
-    run.local_specs = sins_l
-    run.local_out_spec = local.sout_pooled if pool2 else sout_l
+    run.local_spec = local.sin
+    run.local_specs = tuple(local.sins) if not is_pair else (local.sin,)
+    run.local_out_spec = local.sout_pooled if local.pool2 else local.sout
     run.n_shards = n_shard
     return run
 
@@ -563,7 +493,7 @@ def sp_packed(op, mesh: Mesh, axis: str = "sp",
 def sp_conv(conv_op, mesh: Mesh, axis: str = "sp",
             dp_axis: Optional[str] = None):
     """Spatially-sharded conv: H split over `axis` with halo exchange via
-    ``jax.lax.ppermute`` (the ICI neighbor pattern; SURVEY.md §5
+    ``jax.lax.ppermute`` (the neighbor pattern; SURVEY.md §5
     long-context row), **overlapped with interior compute**.
 
     Schedule (the ring-attention-shaped pipeline, SURVEY §7 hard part):
@@ -571,7 +501,7 @@ def sp_conv(conv_op, mesh: Mesh, axis: str = "sp",
         1. issue both halo ppermutes (async collective-permutes),
         2. run the INTERIOR conv — the output rows computable from local
            input alone; no data dependence on the permutes, so XLA's async
-           scheduler hides the ICI latency under the bulk of the MXU work,
+           scheduler hides the transfer latency under the bulk of the conv,
         3. run the two tiny BOUNDARY convs (ph / kh-1-ph output rows) on
            halo+edge slabs once the permutes land,
         4. concatenate [top, interior, bottom] output rows.
@@ -580,8 +510,7 @@ def sp_conv(conv_op, mesh: Mesh, axis: str = "sp",
     stride_h == 1 and ih % n_shard == 0. Each shard computes ih_l output
     rows against a zero-extended bottom edge; rows beyond the true oh are
     sliced off at the end (they read only zero padding, matching conv
-    semantics; for SAME padding the slice is a no-op). stride_w may be >1:
-    strided ops route through their s2d lowering per slab.
+    semantics; for SAME padding the slice is a no-op). stride_w may be >1.
 
     dp_axis: optionally also shard the batch dim over a second mesh axis
     (pure data parallelism composed with the halo exchange — the production
@@ -609,12 +538,11 @@ def sp_conv(conv_op, mesh: Mesh, axis: str = "sp",
     ph = cfg.ph
     kb = cfg.kh - 1 - ph          # halo rows needed from below
     check(ih_l >= cfg.kh - 1, "shard too thin for the kernel height")
-    from ..ops.layout import s2d_cfg
+    import dataclasses
+    replace_geometry = dataclasses.replace
 
     def conv_slab(pcfg, src, operands, sum_slab=None):
         kw = {} if sum_slab is None else dict(sum_src=sum_slab)
-        if pcfg.sh > 1 or pcfg.sw > 1:
-            return _conv_call_s2d(pcfg, s2d_cfg(pcfg), src, *operands, **kw)
         return _conv_call(pcfg, src, *operands, **kw)
 
     def local_fn(src, *rest):

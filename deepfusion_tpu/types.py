@@ -1,11 +1,11 @@
 """Core type system: dtypes, layouts, rounding modes, and the `memory` container.
 
-TPU-native re-design of the reference's type layer
+Re-design of the reference's type layer
 (``include/deepfusion.h:27-103``): the reference carries a raw aligned buffer
 plus (dims, format, dtype); here the container wraps a host numpy array or a
 device ``jax.Array`` and the *physical* layout is always NHWC for activations
 (the only activation layout the reference kernels accept,
-``src/jit_concat_kernel.cc:150-153``) and a TPU matmul-packed layout for
+``src/jit_concat_kernel.cc:150-153``) and a matmul-packed layout for
 weights (the analogue of the reference's ``OIhw4i16o4i``,
 ``include/deepfusion.h:59``).
 """
@@ -85,9 +85,11 @@ class format(enum.Enum):
     ``nchw``/``oihw`` are *logical description* formats: like the reference's
     ``memory(nchw_dims, fmt, dt)`` constructor, dims may be given in NCHW order
     and are permuted to the physical layout (``src/deepfusion.cc:25-57``).
-    Physical activation layout on TPU is always ``nhwc`` (channels in lanes).
-    ``tpu_pack`` replaces ``OIhw4i16o4i``: weights packed to a 2-D
-    ``(kh*kw*ic_padded, oc_padded)`` int8 matrix ready for the MXU.
+    Physical activation layout is always ``nhwc`` (channels innermost).
+    ``tpu_pack`` (an API name kept from the project's first build)
+    replaces ``OIhw4i16o4i``: weights packed to a 2-D
+    ``(kh*kw*ic_padded, oc_padded)`` int8 matrix ready for the int8
+    products.
     """
 
     undef = 0

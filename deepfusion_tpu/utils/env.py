@@ -1,8 +1,8 @@
-"""Environment-variable feature toggles.
+"""Environment toggles, the compile cache and the kernels' interpret switch.
 
 Reference parity: ``util/scaffold.cc:56-82`` — ``DEEPFUSION_PROFILE`` enables
 per-submit wall-clock reporting, ``DEEPFUSION_DUMP_CODE`` dumps generated JIT
-machine code. The TPU analogue of a code dump is the lowered Mosaic/HLO text
+machine code. The analogue of a code dump here is the lowered HLO text
 (``DEEPFUSION_DUMP_CODE=1`` writes ``df_dump_<name>.<n>.txt``).
 """
 from __future__ import annotations
@@ -10,6 +10,7 @@ from __future__ import annotations
 import os
 
 _TRUTHY = ("1", "true", "yes", "on")
+_INTERPRET = False
 
 
 def _env_flag(name: str) -> bool:
@@ -26,45 +27,34 @@ def dump_code() -> bool:
     return _env_flag("DEEPFUSION_DUMP_CODE")
 
 
+def set_interpret_kernels(on: bool) -> None:
+    """Run Pallas kernels in the interpreter. Only the CPU test suite turns
+    this on; nothing else does, so on a GPU every kernel runs compiled."""
+    global _INTERPRET
+    _INTERPRET = bool(on)
+
+
 def interpret_kernels() -> bool:
-    """Force Pallas interpreter mode (no reference analogue; debugging aid).
-
-    Auto-enabled when the default backend is not a TPU so the whole test
-    suite runs on CPU hosts.
-    """
-    if _env_flag("DEEPFUSION_INTERPRET"):
-        return True
-    try:
-        import jax
-        return jax.default_backend() != "tpu"
-    except Exception:  # pragma: no cover
-        return True
+    return _INTERPRET
 
 
-def tpu_compiler_params(dimension_semantics=None):
-    """Mosaic compiler params for the big conv-family kernels.
+def compile_cache_dir() -> str:
+    """JAX's persistent compile cache: ``JAX_COMPILATION_CACHE_DIR`` when
+    set (JAX reads it itself), else ``.jax_cache/`` at the checkout root.
+    A fixed path, because the path is part of what the cache is keyed
+    on."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))), ".jax_cache")
 
-    Two measured, load-bearing knobs:
 
-    * ``vmem_limit_bytes`` — Mosaic's default scoped-VMEM stack limit is
-      16 MiB, well under the 128 MiB physically present on v5e-class
-      cores; a kernel whose working set crosses it fails with an opaque
-      RESOURCE_EXHAUSTED at compile time. Raise it to the framework's
-      VMEM budget (config._default_vmem_budget / DF_VMEM_BUDGET) plus
-      headroom for Mosaic's own temporaries, so the tile picker's budget
-      is the single source of truth.
+def enable_compile_cache() -> str:
+    """Point JAX at ``compile_cache_dir()``; returns the directory. Sets
+    nothing when ``JAX_COMPILATION_CACHE_DIR`` is set."""
+    import jax
 
-    * ``dimension_semantics`` — independent grid dims are declared
-      "parallel" (semantically required; the early "63.5% -> 94.6%"
-      speedup attributed to it was N=24/min-of-reps protocol noise —
-      re-measured perf-neutral on the single-core v5e under the honest
-      protocol, docs/PERF.md). Dims that accumulate across steps (the
-      ic-chunk dim) must stay "arbitrary".
-    """
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ..config import _default_vmem_budget
-
-    limit = min(int(_default_vmem_budget() * 2), 100 * 1024 * 1024)
-    return pltpu.CompilerParams(vmem_limit_bytes=limit,
-                                dimension_semantics=dimension_semantics)
+    path = compile_cache_dir()
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    return path

@@ -2,7 +2,7 @@
 
 Reference parity: ``util/math_func.cc:22-28`` (output-size formulas) and
 ``util/deepfusion_utils.h:91-255`` (divisibility helpers, ``balance211`` work
-split, ``nd_iterator``). On TPU the XLA scheduler owns work partitioning, but
+split, ``nd_iterator``). On the device XLA owns work partitioning, but
 ``balance211``/``nd_iterator`` remain useful for host-side sharding (data
 loading, per-host batch splits) and are also implemented natively in
 ``native/dfruntime.cc``.

@@ -3,13 +3,14 @@
 Reference parity: ``op::submit`` wraps ``infer`` with wall-clock timing when
 profiling is on (``src/deepfusion.cc:90-103``); JIT code dump writes
 ``jit_dump_<name>.N.bin`` (``src/jit_generator.h:261-296``). Here the dump is
-the XLA/Mosaic lowered text from ``jax.jit(...).lower().compile().as_text()``.
+the compiled XLA text from ``jax.jit(...).lower().compile().as_text()``.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import os
+import tempfile
 
 from . import env
 from .logger import get_current_ms, info
@@ -18,13 +19,16 @@ _dump_counts: dict = collections.defaultdict(int)
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str = "/tmp/df_trace"):
-    """Capture a device-level profiler trace (TensorBoard format).
+def device_trace(log_dir: str = None):
+    """Capture a device-level profiler trace (TensorBoard format; default
+    directory ``df_trace`` under the temp dir).
 
-    TPU-native upgrade of the reference's wall-clock-only profiling
-    (SURVEY.md §5 tracing row): wraps ``jax.profiler.trace`` so per-kernel
-    device timelines are visible, not just host wall-clock.
+    Upgrade of the reference's wall-clock-only profiling (SURVEY.md §5
+    tracing row): wraps ``jax.profiler.trace`` so per-kernel device
+    timelines are visible, not just host wall-clock.
     """
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), "df_trace")
     import jax
 
     with jax.profiler.trace(log_dir):
@@ -46,7 +50,7 @@ def submit_timer(name: str):
 def maybe_dump_lowered(name: str, jitted, *example_args, **kwargs):
     """Dump compiled text for a jitted callable when DEEPFUSION_DUMP_CODE=1.
 
-    TPU analogue of the reference's machine-code dump
+    Analogue of the reference's machine-code dump
     (``src/jit_generator.h:261-296``); inspect with a text editor instead of
     ``xed``.
     """

@@ -89,8 +89,7 @@ def test_factory_rejects_dtype_mismatch(rng):
 
 def test_conv_dispatch_rejects_malformed_calls(rng):
     """The conv factory resolves its two reference overloads by operand
-    type at each position; anything else must raise, never mis-dispatch
-    (VERDICT r1 weak #7)."""
+    type at each position; anything else must raise, never mis-dispatch."""
     from deepfusion_tpu.utils.logger import CheckError
     src = df.memory([2, 16, 9, 9], df.format.nhwc, df.u8).fill_random(rng)
     wei = df.memory([32, 16, 3, 3], df.format.OIhw4i16o4i, df.s8)
@@ -114,8 +113,7 @@ def test_conv_dispatch_rejects_malformed_calls(rng):
 
 def test_object_api_results_stay_on_device(rng):
     """Chained object-API ops must not bounce through the host between
-    submits; memory.numpy() is the explicit host copy (VERDICT r1 weak
-    #8)."""
+    submits; memory.numpy() is the explicit host copy."""
     import jax
     a = df.memory([2, 64, 4, 4], df.format.nhwc, df.s8).fill_random(rng)
     b = df.memory([2, 64, 4, 4], df.format.nhwc, df.s8).fill_random(rng)

@@ -1,8 +1,5 @@
-"""Bench harness unit tests: the driver-facing JSON contract.
-
-The round-3 official capture was rc=124/parsed=null; the harness now
-guarantees a parseable line under interruption (VERDICT r3 #1/#8).
-"""
+"""Bench harness unit tests: the JSON contract, incl. a parseable line
+under interruption."""
 import json
 
 import numpy as np
@@ -44,7 +41,7 @@ def test_partial_result_after_full_line():
 def test_frozen_result_wins_over_aux_chain_diffs():
     # --compare-xla reuses timeit_chain after the primary measurement;
     # an interrupt during the baseline must emit the frozen fused result,
-    # not the (slower) baseline diffs under the fused metric (r4 ADVICE)
+    # not the (slower) baseline diffs under the fused metric
     _reset()
     frozen = {"metric": "fused_conv3x3_1x1_int8_roofline_pct",
               "value": 81.19, "unit": "%", "vs_baseline": 0.9022}
@@ -58,7 +55,7 @@ def test_frozen_result_wins_over_aux_chain_diffs():
 
 def test_prefirst_fallback_uses_active_metric():
     # an interrupt during compile of a non-fused bench must file the
-    # zero under THAT bench's metric name (r4 ADVICE)
+    # zero under THAT bench's metric name
     _reset()
     bench._PARTIAL["builder"] = lambda sec: {
         "metric": "concat_relu_hbm_pct", "value": 1.0, "unit": "%",

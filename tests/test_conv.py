@@ -120,10 +120,9 @@ def test_round_semantics_ties_to_even():
     assert round_f32(x, round_mode.down).tolist() == [0, 1, 2, -1, -2, 3]
 
 
-# ----- strided convs run the native Pallas kernel (s2d lowering) -----
-# Reference handles stride in-kernel (src/jit_conv_kernel.cc:512-673); the
-# TPU build lowers stride-(sh,sw) to a stride-1 conv on the space-to-depth
-# grid (ops/layout.py s2d_*) and runs the same flagship Pallas kernel.
+# ----- strided convs -----
+# Reference handles stride in-kernel (src/jit_conv_kernel.cc:512-673);
+# here strided dense convs run as plain XLA (strided taps + int8 GEMM).
 
 STRIDED_SHAPES = [
     (1, 16, 8, 10, 48, 3, 3, 1, 1, 2, 2),
@@ -132,8 +131,7 @@ STRIDED_SHAPES = [
     (1, 8, 11, 11, 16, 3, 3, 1, 1, 3, 3),    # stride 3 (stride == kernel)
     (1, 8, 10, 10, 16, 5, 5, 2, 2, 2, 2),    # 5x5 kernel, stride 2
     (1, 8, 9, 9, 16, 3, 3, 0, 0, 4, 4),      # stride > kernel (crop path)
-    # ResNet-stem geometry, spatially scaled (the real 50x3x224x224 case
-    # runs on-chip in scratch/refscale_tpu.py): 7x7/s2 p3, 3 input chans
+    # ResNet-stem geometry, spatially scaled: 7x7/s2 p3, 3 input chans
     (2, 3, 28, 28, 16, 7, 7, 3, 3, 2, 2),
 ]
 
@@ -213,17 +211,15 @@ def test_conv_rejects_groups():
                         (2, 11, 11, 32), "u8", groups=2)
 
 
-# ----- VMEM-bounded ic-chunked accumulation (VERDICT r1 #9; the
-# reference's nb_ic_blocking, src/jit_conv_kernel.cc:643-646 and the
-# multi-call acc_s32 accumulation, src/op_conv.cc:96-122) -----
+# ----- channel-blocked K loop: ic = 256 spans several channel blocks of
+# the kernel's K loop (the reference's nb_ic_blocking,
+# src/jit_conv_kernel.cc:643-646) -----
 
-def _chunked_cfg(rng, oc=128, fused=False, with_sum=False, budget=1_200_000,
-                 monkeypatch=None):
-    n, ic, hw = 1, 256, 24
+def _wide_ic_cfg(rng, oc=128, fused=False, with_sum=False):
+    n, ic, hw = 1, 256, 12
     src = fill_data((n, hw, hw, ic), "u8", rng)
     wei = fill_data((oc, ic, 3, 3), "s8", rng)
     bia = fill_data((oc,), "s32", rng)
-    monkeypatch.setenv("DF_VMEM_BUDGET", str(budget))
     kw = {}
     wei1 = bia1 = None
     if fused:
@@ -239,29 +235,21 @@ def _chunked_cfg(rng, oc=128, fused=False, with_sum=False, budget=1_200_000,
     return cfg, src, wei, bia, wei1, bia1
 
 
-def test_vmem_budget_picks_ic_chunks(rng, monkeypatch):
-    cfg, *_ = _chunked_cfg(rng, monkeypatch=monkeypatch)
-    assert cfg.ic_chunks > 1, (cfg.ic_chunks, cfg.row_tile)
-    assert cfg.icp % (cfg.ic_chunks * 128) == 0
-
-
-def test_conv_ic_chunked_exact(rng, monkeypatch):
+def test_conv_channel_blocked_exact(rng):
     from deepfusion_tpu.ops.conv import ConvOp
-    cfg, src, wei, bia, _, _ = _chunked_cfg(rng, monkeypatch=monkeypatch)
-    assert cfg.ic_chunks > 1
+    cfg, src, wei, bia, _, _ = _wide_ic_cfg(rng)
     out = ConvOp(cfg, wei, bia)(src)
-    compare(out, conv_ref(cfg, src, wei, bia), "ic-chunked conv")
+    compare(out, conv_ref(cfg, src, wei, bia), "channel-blocked conv")
 
 
-def test_conv_ic_chunked_fused_with_sum(rng, monkeypatch):
+def test_conv_channel_blocked_fused_with_sum(rng):
     from deepfusion_tpu.ops.conv import ConvOp
-    cfg, src, wei, bia, wei1, bia1 = _chunked_cfg(
-        rng, fused=True, with_sum=True, monkeypatch=monkeypatch)
-    assert cfg.ic_chunks > 1
+    cfg, src, wei, bia, wei1, bia1 = _wide_ic_cfg(rng, fused=True,
+                                                  with_sum=True)
     sum_src = fill_data((cfg.bs, cfg.oh, cfg.ow, 64), "u8", rng)
     out = ConvOp(cfg, wei, bia, wei1, bia1)(src, sum_src=sum_src)
     compare(out, conv_ref(cfg, src, wei, bia, wei1, bia1, sum_src=sum_src),
-            "ic-chunked fused conv + sum")
+            "channel-blocked fused conv + sum")
 
 
 @pytest.mark.slow

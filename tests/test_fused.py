@@ -2,7 +2,7 @@
 
 The flagship op (call stack 3.3 in SURVEY.md). The oracle composes the
 standalone conv3x3 oracle -> u8 requant -> 1x1 oracle, checking the fused
-kernel's VMEM-resident intermediate is bit-identical to the composed path
+kernel's register-resident intermediate is bit-identical to the composed path
 (the reference's key dataflow invariant, src/jit_conv_kernel.cc:176-184).
 """
 import numpy as np

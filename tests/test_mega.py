@@ -1,17 +1,17 @@
-"""Two-layer megakernel (PackedConvPairOp) differential tests.
+"""Conv pair (PackedConvPairOp) differential tests.
 
-The megakernel must be bit-identical to running the two fused convs as
-sequential PackedConvOps with the pair's intermediate spec — the
-sequential ops are themselves oracle-tested against the reference
-semantics (tests/test_packed.py), so equality here chains the oracle
-through the VMEM-resident intermediate.
+The pair must be bit-identical to running the two fused convs as
+sequential PackedConvOps with the pair's intermediate spec, and to the
+numpy oracle composition of the two convs.
 """
 import numpy as np
 import pytest
 
 from deepfusion_tpu.config import ConvConfig
 from deepfusion_tpu.ops.mega import PackedConvPairOp
-from deepfusion_tpu.ops.packed import PackedConvOp, PackedSpec, pack_image
+from deepfusion_tpu.ops.packed import (PackedConvOp, PackedSpec, pack_image,
+                                       unpack_image)
+from deepfusion_tpu.ops.ref import conv_ref
 from deepfusion_tpu.utils.logger import CheckError
 
 from helpers import fill_data
@@ -45,19 +45,25 @@ def _check_match(pair, op_a, op_b, src):
     assert (img[:, :, s.col_off + s.w:] == -128).all()
 
 
-@pytest.mark.parametrize("split_kh", [False, True])
+@pytest.mark.parametrize("via_oracle", [False, True])
 @pytest.mark.parametrize("fused_a,fused_b", [(True, True), (True, False),
                                              (False, True), (False, False)])
-def test_pair_matches_sequential(fused_a, fused_b, split_kh, rng):
+def test_pair_matches_sequential(fused_a, fused_b, via_oracle, rng):
     hw = 12
     cfg_a, src, wa, ba, wa1, ba1 = build_cfg(
         2, 32, hw, 32, 1, oc1=32 if fused_a else None, rng=rng)
     cfg_b, _, wb, bb, wb1, bb1 = build_cfg(
         2, 32, hw, 32, 1, oc1=32 if fused_b else None, rng=rng)
     pair, op_a, op_b = _pair_and_seq(
-        cfg_a, (wa, ba, wa1, ba1), cfg_b, (wb, bb, wb1, bb1),
-        split_kh=split_kh)
-    _check_match(pair, op_a, op_b, src)
+        cfg_a, (wa, ba, wa1, ba1), cfg_b, (wb, bb, wb1, bb1))
+    if not via_oracle:
+        _check_match(pair, op_a, op_b, src)
+        return
+    mid = conv_ref(cfg_a, src, wa, ba, wa1, ba1)
+    want = conv_ref(cfg_b, mid, wb, bb, wb1, bb1)
+    got = unpack_image(np.asarray(pair(pack_image(src, pair.sin))),
+                       pair.sout)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_pair_channel_change(rng):
@@ -99,12 +105,6 @@ def test_pair_deep_input_halo(rng):
     pair, op_a, op_b = _pair_and_seq(
         cfg_a, (wa, ba, wa1, ba1), cfg_b, (wb, bb, wb1, bb1),
         sin=sin, halo_out=1)
-    # deep enough input halo removes the boundary rolls entirely
-    from deepfusion_tpu.ops.mega import _pair_offs
-    off_top, off_bot, *_ = _pair_offs(pair.cfg_a, pair.cfg_b, pair.sin,
-                                      pair.smid, pair.sout,
-                                      pair.cfg_b.row_tile)
-    assert off_top == 0 and off_bot == 0
     _check_match(pair, op_a, op_b, src)
 
 
@@ -120,7 +120,7 @@ def test_pair_self_chain(rng):
            (pair.sout.h, pair.sout.w, pair.sout.c, pair.sout.cp,
             pair.sout.halo, pair.sout.col_off, pair.sout.iwp)
     x = pack_image(src, pair.sin)
-    y = pair(pair(x))          # two megakernel launches = four convs
+    y = pair(pair(x))          # two pairs = four convs
     want = op_b(op_a(op_b(op_a(x))))
     np.testing.assert_array_equal(np.asarray(y), np.asarray(want))
 
@@ -142,14 +142,15 @@ def test_pair_validation_fail_fast(rng):
         PackedConvPairOp(cfg_s, (wa, None), cfg_s, (wa, None))
 
 
-@pytest.mark.parametrize("split_kh", [False, True])
-def test_pair_save_load_roundtrip(tmp_path, split_kh, rng):
+@pytest.mark.parametrize("fused_b", [False, True])
+def test_pair_save_load_roundtrip(tmp_path, fused_b, rng):
     hw = 12
     cfg_a, src, wa, ba, wa1, ba1 = build_cfg(1, 32, hw, 32, 1, oc1=32,
                                              rng=rng)
-    cfg_b, _, wb, bb, wb1, bb1 = build_cfg(1, 32, hw, 32, 1, rng=rng)
+    cfg_b, _, wb, bb, wb1, bb1 = build_cfg(1, 32, hw, 32, 1, rng=rng,
+                                           oc1=32 if fused_b else None)
     pair = PackedConvPairOp(cfg_a, (wa, ba, wa1, ba1),
-                            cfg_b, (wb, bb, wb1, bb1), split_kh=split_kh)
+                            cfg_b, (wb, bb, wb1, bb1))
     x = pack_image(src, pair.sin)
     want = np.asarray(pair(x))
     path = str(tmp_path / "pair.npz")
@@ -161,21 +162,24 @@ def test_pair_save_load_roundtrip(tmp_path, split_kh, rng):
     np.testing.assert_array_equal(np.asarray(reloaded(x)), want)
 
 
-@pytest.mark.parametrize("split_kh", [False, True])
-def test_pair_pool2_epilogue(split_kh, rng):
-    """Megakernel with the fused 2x2/s2 max pool on layer b's output ==
+@pytest.mark.parametrize("fused", [False, True])
+def test_pair_pool2_epilogue(fused, rng):
+    """Pair with the 2x2/s2 max pool on layer b's output ==
     packed_maxpool2 of the plain pair's output (a VGG block:
-    conv3x3 -> conv3x3 -> pool in ONE Pallas program)."""
+    conv3x3 -> conv3x3 -> pool)."""
     from deepfusion_tpu.ops.packed import packed_maxpool2
     hw = 12
-    cfg_a, src, wa, ba, wa1, ba1 = build_cfg(2, 32, hw, 32, 1, rng=rng)
-    cfg_b, _, wb, bb, wb1, bb1 = build_cfg(2, 32, hw, 32, 1, rng=rng)
+    oc1 = 32 if fused else None
+    cfg_a, src, wa, ba, wa1, ba1 = build_cfg(2, 32, hw, 32, 1, oc1=oc1,
+                                             rng=rng)
+    cfg_b, _, wb, bb, wb1, bb1 = build_cfg(2, 32, hw, 32, 1, oc1=oc1,
+                                           rng=rng)
     sin = PackedSpec.make(hw, hw, 32, halo=2, col_off=2, iwp=16)
-    plain = PackedConvPairOp(cfg_a, (wa, ba), cfg_b, (wb, bb), sin=sin,
-                             halo_out=2, col_off_out=2, split_kh=split_kh)
-    pooled = PackedConvPairOp(cfg_a, (wa, ba), cfg_b, (wb, bb), sin=sin,
-                              halo_out=2, col_off_out=2,
-                              split_kh=split_kh, pool2=True)
+    wts_a, wts_b = (wa, ba, wa1, ba1), (wb, bb, wb1, bb1)
+    plain = PackedConvPairOp(cfg_a, wts_a, cfg_b, wts_b, sin=sin,
+                             halo_out=2, col_off_out=2)
+    pooled = PackedConvPairOp(cfg_a, wts_a, cfg_b, wts_b, sin=sin,
+                              halo_out=2, col_off_out=2, pool2=True)
     x = pack_image(src, sin)
     want, want_spec = packed_maxpool2(plain(x), plain.sout)
     got = np.asarray(pooled(x))
@@ -202,32 +206,10 @@ def test_pair_pool2_save_load(tmp_path, rng):
     np.testing.assert_array_equal(np.asarray(reloaded(x)), want)
 
 
-@pytest.mark.parametrize("grid_order,msplit", [("tb", 1), ("bt", 2),
-                                               ("tb", 2), ("bt", 4)])
-def test_pair_schedule_knobs_bit_exact(grid_order, msplit, rng):
-    """grid_order / msplit are pure schedule knobs — any combination must
-    be bit-identical to the sequential composition (round-5 perf levers,
-    scratch/pair_probe.py)."""
-    hw = 12
-    cfg_a, src, wa, ba, wa1, ba1 = build_cfg(2, 32, hw, 32, 1, oc1=32,
-                                             rng=rng)
-    cfg_b, _, wb, bb, wb1, bb1 = build_cfg(2, 32, hw, 32, 1, oc1=32,
-                                           rng=rng)
-    pair, op_a, op_b = _pair_and_seq(
-        cfg_a, (wa, ba, wa1, ba1), cfg_b, (wb, bb, wb1, bb1),
-        grid_order=grid_order, msplit=msplit,
-        **({"sin": PackedSpec.make(hw, hw, 32, halo=2, col_off=1, iwp=16),
-            "halo_out": 2} if msplit == 4 else {}))
-    _check_match(pair, op_a, op_b, src)
-
-
 def test_pair_deep_halo_roll_free(rng):
     """halo_in = halo_out + ph_a + ph_b makes every input window
-    in-bounds (off_top == off_bot == 0): no boundary clamp, no roll —
-    the geometry behind the round-5 roll-free tile ladder. Must stay
-    bit-identical to the sequential composition."""
-    from deepfusion_tpu.ops.mega import _pair_offs
-
+    in-bounds (the erosion geometry). Must stay bit-identical to the
+    sequential composition."""
     hw = 12
     cfg_a, src, wa, ba, *_ = build_cfg(2, 32, hw, 32, 1, rng=rng)
     cfg_b, _, wb, bb, *_ = build_cfg(2, 32, hw, 32, 1, rng=rng)
@@ -235,68 +217,13 @@ def test_pair_deep_halo_roll_free(rng):
     pair, op_a, op_b = _pair_and_seq(
         cfg_a, (wa, ba), cfg_b, (wb, bb), sin=sin, halo_out=1,
         col_off_out=1)
-    off_top, off_bot, *_rest = _pair_offs(
-        pair.cfg_a, pair.cfg_b, pair.sin, pair.smid, pair.sout,
-        pair.cfg_b.row_tile)
-    assert off_top == 0 and off_bot == 0
     _check_match(pair, op_a, op_b, src)
-
-
-@pytest.mark.parametrize("msplit", [1, 2])
-def test_pair_reuse_mid_bit_exact(msplit, rng):
-    """Cross-tile intermediate reuse (scratch persists across grid
-    steps; tile t carries tile t-1's last kh_b-1 rows) must be
-    bit-identical to the recompute formulation — multiple tiles AND
-    multiple batch elements (the t==0 reset at batch transitions)."""
-    hw = 12
-    cfg_a, src, wa, ba, wa1, ba1 = build_cfg(3, 32, hw, 32, 1, oc1=32,
-                                             rng=rng)
-    cfg_b, _, wb, bb, wb1, bb1 = build_cfg(3, 32, hw, 32, 1, oc1=32,
-                                           rng=rng)
-    sin = PackedSpec.make(hw, hw, 32, halo=3, col_off=1, iwp=16)
-    kw = dict(sin=sin, halo_out=1, col_off_out=1, row_tile=2)
-    plain = PackedConvPairOp(cfg_a, (wa, ba, wa1, ba1),
-                             cfg_b, (wb, bb, wb1, bb1), **kw)
-    reuse = PackedConvPairOp(cfg_a, (wa, ba, wa1, ba1),
-                             cfg_b, (wb, bb, wb1, bb1), reuse_mid=True,
-                             msplit=msplit, **kw)
-    x = pack_image(src, sin)
-    np.testing.assert_array_equal(np.asarray(reuse(x)),
-                                  np.asarray(plain(x)))
-
-
-def test_pair_reuse_mid_rejects_rolled_geometry(rng):
-    cfg_a, src, wa, ba, *_ = build_cfg(2, 32, 12, 32, 1, rng=rng)
-    cfg_b, _, wb, bb, *_ = build_cfg(2, 32, 12, 32, 1, rng=rng)
-    with pytest.raises(CheckError):
-        PackedConvPairOp(cfg_a, (wa, ba), cfg_b, (wb, bb),
-                         reuse_mid=True)      # equal halos -> rolls
-
-
-def test_pair_pool2_msplit_bit_exact(rng):
-    """pool2 through the msplit chunked store path."""
-    hw = 12
-    cfg_a, src, wa, ba, *_ = build_cfg(1, 32, hw, 32, 1, rng=rng)
-    cfg_b, _, wb, bb, *_ = build_cfg(1, 32, hw, 32, 1, rng=rng)
-    from deepfusion_tpu.ops.packed import packed_maxpool2
-
-    sin = PackedSpec.make(hw, hw, 32, halo=2, col_off=2, iwp=32)
-    plain = PackedConvPairOp(cfg_a, (wa, ba), cfg_b, (wb, bb), sin=sin,
-                             halo_out=2, col_off_out=2)
-    pooled = PackedConvPairOp(cfg_a, (wa, ba), cfg_b, (wb, bb), sin=sin,
-                              halo_out=2, col_off_out=2, pool2=True,
-                              msplit=2)
-    x = pack_image(src, sin)
-    want, _ = packed_maxpool2(plain(x), plain.sout)
-    np.testing.assert_array_equal(np.asarray(pooled(x)), np.asarray(want))
 
 
 def test_pair_pool2_load_rejects_tampered_geometry(tmp_path, rng):
     """A stale/hand-edited pool2 checkpoint with pool-illegal output
     geometry (odd col_off) must fail fast at load, exactly like the
-    constructor does (r4 ADVICE: load skipped validate_packed_maxpool2,
-    so a tampered checkpoint would pool 2x2 windows across image/pad
-    boundaries silently)."""
+    constructor does."""
     import json
 
     hw = 12
@@ -320,10 +247,9 @@ def test_pair_pool2_load_rejects_tampered_geometry(tmp_path, rng):
 
 
 def test_pair_tight_geometry_shallow_to_deep_halo(rng):
-    """Regression: halo_in < halo_out on a tiny image. The clamp must
-    never engage on middle tiles (off <= row_tile bound) — before the
-    fix this geometry picked T=2 with off_top=3 and silently corrupted
-    every interior row (VGGFusion block 3)."""
+    """halo_in < halo_out on a tiny image: the first taps read before the
+    input's first row and the last past its end; those reads feed only
+    masked pad rows (VGGFusion block 3's geometry)."""
     hw = 4
     cfg_a, src, wa, ba, *_ = build_cfg(1, 32, hw, 32, 1, rng=rng)
     cfg_b, _, wb, bb, *_ = build_cfg(1, 32, hw, 32, 1, rng=rng)

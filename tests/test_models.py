@@ -93,7 +93,7 @@ def test_resfusion_matches_oracle(res_net):
 def test_resfusion_packed_path_bit_identical():
     """ResFusionNet's layout-persistent forward — strided s2d stem, packed
     sum post-op residual, packed downsample+pool — must produce bitwise
-    the dense path's logits (VERDICT r2 #5)."""
+    the dense path's logits."""
     from deepfusion_tpu.models import ResFusionNet, ResFusionNetConfig
     net = ResFusionNet(ResFusionNetConfig(batch=2, hw=32, in_ch=16,
                                           width=64, num_classes=32))
@@ -134,7 +134,7 @@ def test_packed_build_under_trace():
     assert a == b
 
 
-# ----- VGGFusion: megakernel blocks (ops/mega.py pool2) -----
+# ----- VGGFusion: conv-pair blocks (ops/mega.py pool2) -----
 
 def _vgg_net():
     from deepfusion_tpu.models import VGGFusion, VGGFusionConfig
@@ -151,9 +151,8 @@ def test_vggfusion_forward_shape():
 
 
 def test_vggfusion_packed_path_bit_identical():
-    """The 3-megakernel packed forward (one Pallas program per
-    conv-conv-pool block) must equal the dense ConvOp+ConvPoolOp
-    forward bitwise."""
+    """The packed forward (one PackedConvPairOp per conv-conv-pool
+    block) must equal the dense ConvOp+ConvPoolOp forward bitwise."""
     net = _vgg_net()
     x = net.example_input()
     dense = np.asarray(net(x))
@@ -169,9 +168,8 @@ def test_vggfusion_packed_under_jit():
 
 
 def test_vggfusion_hybrid_path_bit_identical():
-    """The mixed schedule (packed megakernel for the big-image block,
-    dense tail) must equal both pure forwards bitwise (round-5
-    small-image regime engineering, VERDICT r4 #7)."""
+    """The mixed schedule (packed pair for the big-image block, dense
+    tail) must equal both pure forwards bitwise."""
     net = _vgg_net()
     x = net.example_input()
     np.testing.assert_array_equal(np.asarray(net.hybrid_call(x)),

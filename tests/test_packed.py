@@ -125,7 +125,7 @@ def test_packed_validation_fail_fast(rng):
     bad = PackedSpec.make(13, 13, 32, halo=0, col_off=1)  # halo < ph
     with pytest.raises(CheckError):
         PackedConvOp(cfg, wei, bia, sin=bad)
-    # stride-2 is s2d-lowered, not rejected (VERDICT r2 #5)
+    # stride-2 is s2d-lowered, not rejected
     cfg2 = ConvConfig.make((1, 13, 13, 32), (32, 32, 3, 3), None, (2, 2),
                            (1, 1), (1, 7, 7, 32), "u8")
     assert PackedConvOp(cfg2, wei).cfg_orig is not None
@@ -275,7 +275,7 @@ def test_packed_global_avgpool(rng):
     assert out.shape == (3, 1, 1, 40) and out.dtype == np.uint8
 
 
-# ----- sum post-op in the packed domain (VERDICT r2 #5) -----
+# ----- sum post-op in the packed domain -----
 
 def _sum_cfg(mb, hw, ic, oc, oc1, rng):
     cfg, src, wei, bia0, wei1, bia1 = build_cfg(
@@ -328,7 +328,7 @@ def test_packed_sum_validation(rng):
         PackedConvOp(cfg, wei, bia0, sin=sin, col_off_out=1, halo_out=1)
 
 
-# ----- strided (s2d-lowered) packed conv (VERDICT r2 #5) -----
+# ----- strided (s2d-lowered) packed conv -----
 
 @pytest.mark.parametrize("k,stride,pad", [(3, 2, 1), (2, 2, 0), (5, 2, 2)])
 def test_packed_strided_conv(k, stride, pad, rng):
@@ -469,10 +469,8 @@ def test_packed_conv_pool2_save_load(tmp_path, rng):
                                                 (5, 2, 2, False),
                                                 (3, 3, 1, False)])
 def test_packed_strided_sparse_phase(k, stride, pad, fused, rng):
-    """ic % 128 == 0 routes the strided op through the SPARSE-PHASE s2d
-    tap formulation (lane-sliced per-tap phase groups, K = kh*kw*ic
-    rows — no zero-phase MAC inflation); must equal the dense strided
-    ConvOp bit-for-bit, incl. fused 1x1 (round-5 strided-kernel work)."""
+    """A wide (ic = 128) strided packed op on the space-to-depth grid
+    must equal the dense strided ConvOp bit-for-bit, incl. fused 1x1."""
     from deepfusion_tpu.ops.conv import ConvOp
     mb, hw, ic, oc = 1, 10, 128, 32
     oh = conv_output_size(hw, k, stride, pad)
@@ -492,8 +490,7 @@ def test_packed_strided_sparse_phase(k, stride, pad, fused, rng):
         conv1_relu=fused, conv1_scales=(0.4,) if fused else (1.0,))
     expect = np.asarray(ConvOp(cfg, wei, bia, wei1, bia1)(src))
     pop = PackedConvOp(cfg, wei, bia, wei1, bia1)
-    assert pop.sparse_taps is not None
-    assert len(pop.sparse_taps) == k * k
+    assert pop.cfg_orig == cfg and pop.cfg.sh == 1
     out = pop(pop.pack_input(src))
     compare(unpack_image(np.asarray(out), pop.sout), expect,
             f"sparse-phase strided k={k} s={stride} p={pad} fused={fused}")
@@ -509,20 +506,17 @@ def test_packed_strided_sparse_save_load(tmp_path, rng):
                           (2, 2), (1, 1), (mb, oh, oh, oc), "u8",
                           conv0_relu=True, conv0_scales=(0.02,))
     pop = PackedConvOp(cfg, wei, bia)
-    assert pop.sparse_taps is not None
     path = str(tmp_path / "sparse.npz")
     pop.save(path)
     pop2 = PackedConvOp.load(path)
-    assert pop2.sparse_taps == pop.sparse_taps
+    assert (pop2.cfg, pop2.cfg_orig) == (pop.cfg, pop.cfg_orig)
     np.testing.assert_array_equal(np.asarray(pop(pop.pack_input(src))),
                                   np.asarray(pop2(pop2.pack_input(src))))
 
 
 def test_packed_strided_sparse_falls_back_on_wide_taps(rng):
-    """|d| >= 4 column taps exceed the byte-shift range; the sparse-phase
-    path must fall back to the dense-phase pack (which has the
-    output-roll fallback) instead of silently mis-shifting on hardware
-    (r5 review finding)."""
+    """A wide input margin (col_off 5 -> column taps shifted by 4-5 flat
+    positions) on the strided packed path."""
     from deepfusion_tpu.ops.conv import ConvOp
     from deepfusion_tpu.ops import layout
     mb, hw, ic, oc = 1, 10, 128, 32
@@ -537,7 +531,6 @@ def test_packed_strided_sparse_falls_back_on_wide_taps(rng):
     sin = PackedSpec.make(cfg2.ih, cfg2.iw, cfg2.ic, halo=1, col_off=5,
                           iwp=((cfg2.iw + 5 + 1 + 7) // 8) * 8)
     pop = PackedConvOp(cfg, wei, bia, sin=sin, col_off_out=1, halo_out=1)
-    assert pop.sparse_taps is None       # d in {4, 5}: out of range
     expect = np.asarray(ConvOp(cfg, wei, bia)(src))
     compare(unpack_image(np.asarray(pop(pop.pack_input(src))), pop.sout),
             expect, "sparse fallback wide taps")

@@ -26,7 +26,7 @@ def test_fused_save_load_roundtrip(tmp_path, rng):
 
 def test_sum_postop_save_load(tmp_path, rng):
     """Round 1 bug: `sum_dt` was never serialized, so save() raised
-    TypeError on any with_sum config (VERDICT.md weak #2)."""
+    TypeError on any with_sum config."""
     src = fill_data((2, 9, 9, 16), "u8", rng)
     wei = fill_data((32, 16, 3, 3), "s8", rng)
     bia = fill_data((32,), "s32", rng)
@@ -58,7 +58,7 @@ def test_standalone_save_load(tmp_path, rng):
 
 
 def test_convpool_save_load(tmp_path, rng):
-    """Persistence parity for ConvPoolOp (VERDICT r2 weak #7)."""
+    """Persistence parity for ConvPoolOp."""
     from deepfusion_tpu.config import PoolConfig
     from deepfusion_tpu.ops.convpool import ConvPoolOp
 
@@ -78,7 +78,7 @@ def test_convpool_save_load(tmp_path, rng):
 
 
 def test_packed_save_load(tmp_path, rng):
-    """Persistence parity for PackedConvOp (VERDICT r2 weak #7): the
+    """Persistence parity for PackedConvOp: the
     input/output PackedSpecs must round-trip with the config."""
     from deepfusion_tpu.ops.packed import (PackedConvOp, pack_image,
                                            unpack_image)
